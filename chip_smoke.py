@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving main path on one CUDA card.
+"""Drive the PyTorch port's main paths on one CUDA card: serving, and
+the sync library's plans with the paper's kernel benchmarks.
 
-    python3 chip_smoke.py            # every phase, one card
+    python3 chip_smoke.py            # phases 1-4 and 6, one card
 
 Run from the root of a checkout; it needs ``src/repro_torch`` beside it
 and a CUDA card, and exits non-zero without printing a result otherwise.
 It never imports ``jax`` or the JAX package. Phases, each printing one
 JSON line with its seconds:
 
-  1 card     the card's name and power limit (nvidia-smi); both CUDA
-             kernels built from ``src/repro_torch/csrc`` in parallel
+  1 card     the card's name and power limit (nvidia-smi); all five
+             CUDA kernels built from ``src/repro_torch/csrc`` in
+             parallel, one nvcc each
   2 kernels  each kernel against its plain torch version on the card,
              with its time, the plain version's time, the bound and the
-             library yardstick
+             library yardstick (the ticket lock and the barrier over
+             many seeded traces at N 64 and 1024, every membench cell at
+             132 and 1056 steps)
   3 parity   reduced qwen3-14b served on cuda (kernels) and on cpu
              (plain versions) from the same weights and requests:
              greedy streams and grant logs identical
@@ -23,10 +27,19 @@ JSON line with its seconds:
              the phase-4 workload timed plainly, then six more under
              torch.profiler: device time by kernel and the device's
              idle share (busy over the unprofiled wall time)
+  6 primitives  the sync library's plan path on the card: a GPU machine
+             abstraction resolves to the ``cuda`` backend; plan_mutex,
+             plan_mutex_bounded and plan_barrier agree with the ``ref``
+             and ``host`` backends; the batched page ledger, the kernel
+             benchmark records (every ``match`` true), the membench cells
+             timed at the paper's size, and the plan latencies; launch
+             counters prove the lock, barrier and membench kernels
+             carried the path
 
-Then one JSON line naming every kernel with its launches, times and
-bound, and last the device line. Every failed check exits non-zero
-before the last line.
+Then one JSON line naming every kernel with its launches (from phase 4
+for the serving kernels, from phase 6 for the others), times and bound,
+and last the device line. Every failed check exits non-zero before the
+last line.
 """
 
 from __future__ import annotations
@@ -51,6 +64,11 @@ SERVE = dict(capacity=4, requests=8, prompt_min=64, prompt_max=256,
              new_tokens=16, page_size=16, prefill_chunk=64, decode_chunk=1)
 REDUCED = dict(capacity=3, requests=6, prompt_min=5, prompt_max=24,
                new_tokens=8, page_size=4, prefill_chunk=4, decode_chunk=2)
+# The paper's Section-3 cell size: 8 CTAs per SM of 132, 1000 accesses.
+MEMBENCH_CELL = dict(n_steps=1056, repeats=1000)
+
+SOURCES = ["paged_decode.cu", "semaphore_admission.cu", "ticket_lock.cu",
+           "xf_barrier.cu", "membench.cu"]
 
 
 class SmokeFailure(RuntimeError):
@@ -89,6 +107,35 @@ def cuda_ms(fn, reps: int = 50, flush_mb: int = 64) -> float:
     return times[len(times) // 2]
 
 
+def kernel_ms(fn, name: str, reps: int = 20):
+    """Mean device time in ms of the kernels whose name holds ``name``
+    over ``reps`` calls of ``fn``, from torch.profiler (CUPTI): the
+    kernel alone. An event pair around a call also counts the wrapper's
+    small fills and the host's gaps between its ops, which for these
+    latency-bound kernels can be most of the time. ``None`` when the
+    profiler shows no device time for it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us, count = 0.0, 0
+    for evt in prof.key_averages():
+        if name not in evt.key or "CUDA" not in str(
+                getattr(evt, "device_type", "")):
+            continue
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "self_cuda_time_total", 0.0)
+        total_us += dev_us
+        count += evt.count
+    return total_us / count / 1e3 if count and total_us else None
+
+
 def host_ms(fn, reps: int = 20) -> float:
     import torch
     fn()
@@ -121,7 +168,7 @@ def phase_card(out):
     check(bool(card), f"nvidia-smi failed: {smi.stderr.strip()}")
     print(card, flush=True)
     t0 = time.perf_counter()
-    libs = build.build(["paged_decode.cu", "semaphore_admission.cu"])
+    libs = build.build(SOURCES)
     ptxas = {}
     for src, lib in libs.items():
         log = lib.with_name(lib.name + ".log")
@@ -242,6 +289,9 @@ def phase_kernels(out):
           f"paged_decode full width bf16: max abs err {err_bf16} beyond "
           f"{tol_bf16} + 1 ulp")
     ms = cuda_ms(lambda: pa.paged_decode(q, k, v, pages, lens))
+    decode_kernel_ms = kernel_ms(lambda: pa.paged_decode(q, k, v, pages,
+                                                         lens),
+                                 "paged_decode_kernel")
     plain_ms = cuda_ms(lambda: pa.paged_decode_plain(q, k, v, pages, lens))
     nbytes, ops = decode_work(q, k, pages, lens)
     bms, bby = bound_ms(nbytes, ops, "bfloat16")
@@ -263,7 +313,8 @@ def phase_kernels(out):
         "max_abs_err_full_f32": err_full32, "max_abs_err": err_bf16,
         "tol_f32": tol_f32, "tol_bf16": f"{tol_bf16} + 1 bf16 ulp",
         "shape": {k_: v_ for k_, v_ in full.items()}, "dtype": "bfloat16",
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
+        "ms": ms, "kernel_ms": decode_kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": bms, "bound_by": bby,
         "bytes": nbytes, "ops": ops, "library_ms": lib_ms,
         "library": "F.scaled_dot_product_attention on the gathered view"}
 
@@ -293,6 +344,8 @@ def phase_kernels(out):
     a_t, h_t = torch.tensor(arr, device="cuda"), torch.tensor(hold,
                                                              device="cuda")
     ms = cuda_ms(lambda: sem.semaphore_admission(a_t, h_t, cap), flush_mb=1)
+    sem_kernel_ms = kernel_ms(lambda: sem.semaphore_admission(a_t, h_t, cap),
+                              "semaphore_admission_kernel")
     a_c, h_c = a_t.cpu(), h_t.cpu()
     t0 = time.perf_counter()
     for _ in range(20):
@@ -310,12 +363,234 @@ def phase_kernels(out):
     res["semaphore_admission"] = {
         "traces": n_checked, "bit_identical": True, "max_abs_err": 0.0,
         "shape": {"n": n, "capacity": cap}, "ms": ms,
+        "kernel_ms": sem_kernel_ms,
         "plain_ms": plain_ms, "plain_on": "host (numpy loop)",
         "call_ms": call_ms, "launch_floor_ms": launch_floor_ms,
         "bound_ms": bms, "bound_by": bby,
         "bytes": nbytes, "ops": ops, "library_ms": None}
+    res["ticket_lock"] = check_ticket_lock(launch_floor_ms)
+    res["xf_barrier"] = check_xf_barrier(launch_floor_ms)
+    res["membench"] = check_membench(launch_floor_ms)
     out["kernels"] = res
     return res
+
+
+def plain_host_ms(fn, reps: int = 10) -> float:
+    """Median host-clock time of a plain version that runs on the CPU."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def bits_equal(a, b) -> bool:
+    import numpy as np
+    a = a.detach().cpu().numpy()
+    b = b.detach().cpu().numpy()
+    if a.dtype == np.float32:
+        a, b = a.view(np.int32), b.view(np.int32)
+    return a.shape == b.shape and bool(np.array_equal(a, b))
+
+
+def check_ticket_lock(launch_floor_ms):
+    """Grant order and turn trace exact, the chain bit-equal, over seeded
+    permutations at N 64 (the kernel benchmark's shape, timed) and 1024
+    (one requester per CTA, 7.8 per SM)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ticket_lock as tl
+    rng = np.random.default_rng(3)
+    n_checked = 0
+    timing = {}
+    for n in (64, 1024):
+        for _ in range(4):
+            arr = torch.tensor(rng.permutation(n), dtype=torch.int32,
+                               device="cuda")
+            m = torch.tensor(rng.uniform(0.5, 1.5, n), dtype=torch.float32,
+                             device="cuda")
+            b = torch.tensor(rng.standard_normal(n), dtype=torch.float32,
+                             device="cuda")
+            got = tl.ticket_lock(arr, m, b)
+            want = tl.ticket_lock_plain(arr.cpu(), m.cpu(), b.cpu())
+            for g, w, name in zip(got, want, ("grant", "trace", "acc")):
+                check(bits_equal(g, w), f"ticket_lock N={n}: {name} differs "
+                      f"from the plain version")
+            n_checked += 1
+        a_c, m_c, b_c = arr.cpu(), m.cpu(), b.cpu()
+        timing[n] = {
+            "ms": cuda_ms(lambda: tl.ticket_lock(arr, m, b, check=False),
+                          reps=20, flush_mb=1),
+            "kernel_ms": kernel_ms(lambda: tl.ticket_lock(
+                arr, m, b, check=False), "ticket_lock_kernel"),
+            "plain_ms": plain_host_ms(
+                lambda: tl.ticket_lock_plain(a_c, m_c, b_c))}
+        tl.TICKET_LOCK.check_pending()
+    n = 64
+    nbytes = 5 * n * 4 + 4        # arrival, m, b in; grant, trace, acc out
+    ops = 2.0 * n                 # one multiply and one add per requester
+    bms, bby = bound_ms(nbytes, ops, "float32")
+    return {"traces": n_checked, "bit_identical": True, "max_abs_err": 0.0,
+            "shape": {"n": n}, "ms": timing[n]["ms"],
+            "kernel_ms": timing[n]["kernel_ms"],
+            "plain_ms": timing[n]["plain_ms"], "plain_on": "host (numpy loop)",
+            "n1024": timing[1024], "launch_floor_ms": launch_floor_ms,
+            "bound_ms": bms, "bound_by": bby, "bytes": nbytes, "ops": ops,
+            "library_ms": None,
+            "library": "none: no PyTorch call computes a lock timeline"}
+
+
+def barrier_cases(rng, n):
+    """(name, arrive, present, required, epoch): everyone; ~10 % absent;
+    rank 0 absent and required; rank 0 absent and not required; random
+    masks over stale flags from earlier epochs."""
+    import numpy as np
+    ones = np.ones(n, np.int32)
+    absent = (rng.uniform(size=n) < 0.1).astype(np.int32)
+    absent[rng.integers(n)] = 1
+    no0 = ones.copy()
+    no0[0] = 0
+    stale = rng.integers(0, 4, n).astype(np.int32)
+    return [("all", np.zeros(n, np.int32), ones, ones, 1),
+            ("stragglers", np.zeros(n, np.int32), 1 - absent, ones, 1),
+            ("rank0_absent", np.zeros(n, np.int32), no0, ones, 1),
+            ("rank0_absent_not_required", np.zeros(n, np.int32), no0, no0,
+             1),
+            ("random", stale, (rng.uniform(size=n) < 0.9).astype(np.int32),
+             (rng.uniform(size=n) < 0.8).astype(np.int32), 3)]
+
+
+def check_xf_barrier(launch_floor_ms):
+    """Every output exact against the plain version over many seeded
+    epochs at N 64 (timed, everyone present) and 1024; ``done`` must
+    match even with the default 1024-poll budget."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import xf_barrier as xb
+    rng = np.random.default_rng(4)
+    n_checked = 0
+    done_seen = {0: 0, 1: 0}
+    timing = {}
+    for n in (64, 1024):
+        for _ in range(8):
+            for name, arrive, present, required, epoch in barrier_cases(
+                    rng, n):
+                a, p, r = (torch.tensor(x, device="cuda")
+                           for x in (arrive, present, required))
+                got = xb.xf_barrier(a, epoch, p, r)
+                want = xb.xf_barrier_plain(a.cpu(), epoch, p.cpu(), r.cpu())
+                for g, w, what in zip(got, want, ("arrive", "release",
+                                                  "done", "stragglers")):
+                    check(bits_equal(g, w), f"xf_barrier N={n} {name}: "
+                          f"{what} differs from the plain version")
+                done_seen[int(want[2])] += 1
+                n_checked += 1
+        ones = torch.ones(n, dtype=torch.int32, device="cuda")
+        flags = torch.zeros(n, dtype=torch.int32, device="cuda")
+        f_c, o_c = flags.cpu(), ones.cpu()
+        timing[n] = {
+            "ms": cuda_ms(lambda: xb.xf_barrier(flags, 1, ones, ones),
+                          reps=20, flush_mb=1),
+            "kernel_ms": kernel_ms(lambda: xb.xf_barrier(
+                flags, 1, ones, ones), "xf_barrier_kernel"),
+            "plain_ms": cuda_ms(lambda: xb.xf_barrier_plain(
+                flags, 1, ones, ones), reps=20, flush_mb=1),
+            "plain_cpu_ms": plain_host_ms(
+                lambda: xb.xf_barrier_plain(f_c, 1, o_c, o_c))}
+        absent = ones.clone()
+        absent[n // 2] = 0
+        timing[n]["straggler_kernel_ms"] = kernel_ms(
+            lambda: xb.xf_barrier(flags, 1, absent, ones),
+            "xf_barrier_kernel", reps=5)
+    n = 64
+    nbytes = 6 * n * 4 + 4   # arrive, present, required in; 3 out + done
+    bms, bby = bound_ms(nbytes, 0.0, "float32")
+    return {"epochs": n_checked, "done_1": done_seen[1],
+            "done_0": done_seen[0], "exact": True, "max_abs_err": 0.0,
+            "shape": {"n": n, "max_polls": 1024}, "ms": timing[n]["ms"],
+            "kernel_ms": timing[n]["kernel_ms"],
+            "plain_ms": timing[n]["plain_ms"], "plain_on": "card (torch)",
+            "plain_cpu_ms": timing[n]["plain_cpu_ms"],
+            "straggler_kernel_ms": timing[n]["straggler_kernel_ms"],
+            "n1024": timing[1024], "launch_floor_ms": launch_floor_ms,
+            "bound_ms": bms, "bound_by": bby, "bytes": nbytes, "ops": 0.0,
+            "library_ms": None,
+            "library": "none: no PyTorch call computes a barrier epoch"}
+
+
+def membench_library(buf, n_steps, contentious, write, repeats):
+    """The one torch expression that computes a cell's result (timed as
+    the yardstick, never called by the port)."""
+    import torch
+    dev = buf.device
+    steps = torch.arange(n_steps, device=dev)
+    if not write:
+        rows = torch.zeros_like(steps) if contentious else steps
+        return lambda: repeats * buf[rows].sum(-1)
+    if contentious:
+        zero = torch.zeros(1, dtype=torch.long, device=dev)
+        return lambda: buf.index_fill(0, zero, float(repeats + n_steps - 1))
+    vals = (repeats + steps).float()[:, None].expand(n_steps, buf.shape[1])
+    return lambda: buf.index_copy(0, steps, vals)
+
+
+def check_membench(launch_floor_ms):
+    """All four cells at 132 and 1056 steps (1 and 8 CTAs per SM), 1000
+    repeats: buffer exact, sums within rtol 1e-6, and each cell timed
+    with its plain version and library expression on the card."""
+    import torch
+    from repro_torch.kernels import membench as mb
+    rtol = 1e-6
+    cells = {}
+    worst = 0.0
+    for n_steps in (132, 1056):
+        gen = torch.Generator(device="cuda").manual_seed(n_steps)
+        buf = mb.make_buffer(n_steps, generator=gen, device="cuda")
+        for cont in (True, False):
+            for wr in (True, False):
+                kw = dict(n_steps=n_steps, contentious=cont, write=wr,
+                          repeats=1000)
+                bk, sk = mb.membench(buf, **kw)
+                br, sr = mb.membench_plain(buf, **kw)
+                tag = f"{'c' if cont else 'n'}{'w' if wr else 'r'}"
+                check(bits_equal(bk, br), f"membench {tag} n={n_steps}: "
+                      f"buffer differs from the plain version")
+                err = float(((sk - sr).abs() / sr.abs().clamp_min(1e-30))
+                            .max())
+                check(err <= rtol, f"membench {tag} n={n_steps}: sums off "
+                      f"by rtol {err} > {rtol}")
+                worst = max(worst, float((sk - sr).abs().max()))
+                cell = {"rel_err": err,
+                        "ms": cuda_ms(lambda: mb.membench(
+                            buf, check=False, **kw), reps=10, flush_mb=1),
+                        "kernel_ms": kernel_ms(lambda: mb.membench(
+                            buf, check=False, **kw), "membench_kernel",
+                            reps=10)
+                        if n_steps == MEMBENCH_CELL["n_steps"] else None,
+                        "plain_ms": cuda_ms(lambda: mb.membench_plain(
+                            buf, **kw), reps=10, flush_mb=1),
+                        "library_ms": cuda_ms(membench_library(buf, **kw),
+                                              reps=10, flush_mb=1)}
+                mb.MEMBENCH.check_pending()
+                rows = buf.shape[0]
+                cell["bytes"] = 2 * rows * mb.LANE * 4 + 4 * n_steps
+                cell["ops"] = 0.0 if wr else float(n_steps * (mb.LANE + 1))
+                cell["bound_ms"], cell["bound_by"] = bound_ms(
+                    cell["bytes"], cell["ops"], "float32")
+                cells[f"{tag}_{n_steps}"] = cell
+    row = cells[f"cr_{MEMBENCH_CELL['n_steps']}"]
+    return {"cells": cells, "buffers_exact": True, "sums_rtol": rtol,
+            "max_abs_err": worst, "launch_floor_ms": launch_floor_ms,
+            "shape": {"cell": "contentious read", **MEMBENCH_CELL},
+            "ms": row["ms"], "kernel_ms": row["kernel_ms"],
+            "plain_ms": row["plain_ms"],
+            "plain_on": "card (torch)", "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "library": "repeats * buf[rows].sum(-1) (read cells); "
+                       "index_fill / index_copy (write cells)"}
 
 
 # ------------------------------------------------------ phases 3-4: serving
@@ -529,44 +804,174 @@ def phase_profile(out, warm_rounds: int = 4, rounds: int = 6):
             "top_kernels_ms": [[k[:90], v] for k, v in top]}
 
 
+def phase_primitives(out):
+    """The sync library's plan path and the kernel benchmarks on the
+    card. Every launch counter is zeroed just before the path and read
+    just after; the lock, barrier and membench kernels must each have
+    launched."""
+    import numpy as np
+    from repro_torch.benchmarks import kernelbench, primitives
+    from repro_torch.core.abstraction import FERMI
+    from repro_torch.kernels import membench as mb
+    from repro_torch.kernels import ticket_lock as tl
+    from repro_torch.sync import SyncLibrary
+    gpu = SyncLibrary(machine=FERMI)
+    check(gpu.backend_name() == "cuda",
+          f"a GPU machine abstraction resolved to backend "
+          f"{gpu.backend_name()!r}, not 'cuda'")
+    counters = _counters()
+    for k in counters.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(6)
+    n = 12
+    # ---- plan_mutex: cuda against ref (bit-equal) and host (observed)
+    arrival = rng.permutation(n).astype(np.int32)
+    m = rng.uniform(0.5, 1.5, n).astype(np.float32)
+    b = rng.standard_normal(n).astype(np.float32)
+    mp = {be: gpu.plan_mutex(arrival, m, b, backend=be)
+          for be in ("cuda", "ref", "host")}
+    for be, plan in mp.items():
+        check(plan.fifo and np.array_equal(plan.turn_trace, np.arange(n))
+              and np.array_equal(plan.grant_order, mp["ref"].grant_order),
+              f"plan_mutex[{be}]: not the FIFO timeline")
+    check(mp["cuda"].backend == "cuda" and np.float32(mp["cuda"].acc)
+          .view(np.int32) == np.float32(mp["ref"].acc).view(np.int32),
+          "plan_mutex: cuda chain not bit-equal to ref")
+    check(abs(mp["host"].acc - mp["ref"].acc)
+          <= 1e-4 + 2e-4 * abs(mp["ref"].acc), "plan_mutex: host chain")
+    # ---- plan_mutex_bounded: the capacity-1 fixed point (semaphore
+    # kernel on cuda) against the numpy oracle and the other backends
+    arrivals = np.sort(rng.uniform(0, 2, n)).astype(np.float32)
+    holds = rng.uniform(0.5, 1.5, n).astype(np.float32)
+    timeouts = rng.choice([0.0, 0.7, 2.5, np.inf], size=n).astype(
+        np.float32)
+    granted, _, _ = tl.ticket_lock_bounded_oracle(arrivals, holds,
+                                                  timeouts)
+    for be in ("cuda", "ref", "host"):
+        plan = gpu.plan_mutex_bounded(arrivals, holds, timeouts, backend=be)
+        check(np.array_equal(plan.granted, granted),
+              f"plan_mutex_bounded[{be}]: granted {plan.granted} vs "
+              f"oracle {granted}")
+    # ---- plan_barrier: everyone, stragglers, rank 0 absent
+    ones = np.ones(n, np.int64)
+    no0 = ones.copy()
+    no0[0] = 0
+    strag = ones.copy()
+    strag[[3, 7]] = 0
+    for name, present, required, backends in (
+            ("all", ones, ones, ("cuda", "ref", "host")),
+            ("stragglers", strag, ones, ("cuda", "ref", "host")),
+            ("rank0_absent", no0, no0, ("cuda", "ref", "host")),
+            ("rank0_absent_required", no0, ones, ("cuda", "ref"))):
+        bp = {be: gpu.plan_barrier(present, required, backend=be)
+              for be in backends}
+        for be, plan in bp.items():
+            check(plan.done == bp["ref"].done
+                  and np.array_equal(plan.straggler_ranks,
+                                     bp["ref"].straggler_ranks)
+                  and np.array_equal(plan.released, bp["ref"].released),
+                  f"plan_barrier[{be}] {name}: differs from ref")
+        check(bp["ref"].done == int(np.all(present[required > 0])),
+              f"plan_barrier {name}: wrong done bit")
+    # ---- the batched page ledger under the ticket lock
+    counts = rng.integers(0, 9, n)
+    on_card = tl.ticket_lock_batch_window(arrival, counts)
+    on_cpu = tl.ticket_lock_batch_window(arrival, counts, device="cpu")
+    check(all(np.array_equal(x, y) for x, y in zip(on_card[:2], on_cpu[:2]))
+          and on_card[2:] == on_cpu[2:],
+          "ticket_lock_batch_window: cuda and cpu ledgers differ")
+    # ---- the kernel benchmark records and the membench cells
+    recs = kernelbench.records("cuda")
+    bad = [r["name"] for r in recs if not r["match"]]
+    check(not bad, f"kernelbench: no match in {bad}")
+    cells = {}
+    for cont in (True, False):
+        for wr in (True, False):
+            tag = f"{'c' if cont else 'n'}{'w' if wr else 'r'}"
+            cells[tag] = mb.time_cell(contentious=cont, write=wr,
+                                      **MEMBENCH_CELL)
+    rows, latency = primitives.smoke("cuda")
+    launches = {name: k.launches for name, k in counters.items()}
+    wall_s = time.perf_counter() - t0
+    for name in ("ticket_lock", "xf_barrier", "membench"):
+        check(launches[name] > 0,
+              f"{name} never launched on the primitives path")
+    out["launches_primitives"] = launches
+    out["kernelbench"] = recs
+    return {"backend": gpu.backend_name(), "wall_s": wall_s,
+            "launches": launches,
+            "kernelbench": [{"name": r["name"], "match": r["match"],
+                             "ms": r["ms"]} for r in recs],
+            "membench_ms_per_1000_accesses": cells,
+            "membench_cell": MEMBENCH_CELL,
+            "plan_latency_us": latency, "table5": rows[-2]}
+
+
+def _counters():
+    from repro_torch.kernels.membench import MEMBENCH
+    from repro_torch.kernels.paged_attention import PAGED_DECODE
+    from repro_torch.kernels.semaphore import SEMAPHORE_ADMISSION
+    from repro_torch.kernels.ticket_lock import TICKET_LOCK
+    from repro_torch.kernels.xf_barrier import XF_BARRIER
+    return {"paged_decode": PAGED_DECODE,
+            "semaphore_admission": SEMAPHORE_ADMISSION,
+            "ticket_lock": TICKET_LOCK, "xf_barrier": XF_BARRIER,
+            "membench": MEMBENCH}
+
+
 def _leaves(tree):
     from repro_torch.models.common import tree_leaves
     return [leaf for _, leaf in tree_leaves(tree)]
 
 
+KERNELS = (
+    ("paged_decode", "paged_decode.cu",
+     "src/repro/kernels/paged_attention/kernel.py:113", "launches"),
+    ("semaphore_admission", "semaphore_admission.cu",
+     "src/repro/kernels/semaphore/kernel.py:94", "launches"),
+    ("ticket_lock", "ticket_lock.cu",
+     "src/repro/kernels/ticket_lock/kernel.py:104", "launches_primitives"),
+    ("xf_barrier", "xf_barrier.cu",
+     "src/repro/kernels/xf_barrier/kernel.py:126", "launches_primitives"),
+    ("membench", "membench.cu",
+     "src/repro/kernels/membench/kernel.py:80", "launches_primitives"))
+
+
 def kernels_line(out):
-    """The per-kernel record: launches from the main-path run (phase 4),
-    every other number measured in phase 2 of this run."""
+    """The per-kernel record: launches from the run of the kernel's own
+    path (phase 4 serving for the serving kernels, phase 6 primitives
+    for the others), every other number measured in phase 2 of this
+    run. ``ms`` is a call of the wrapper between CUDA events,
+    ``kernel_ms`` the kernel alone from the profiler."""
     ks = out["kernels"]
-    launches = out.get("launches", {})
     rows = []
-    for name, source, replaces in (
-            ("paged_decode", "src/repro_torch/csrc/paged_decode.cu",
-             "src/repro/kernels/paged_attention/kernel.py:113"),
-            ("semaphore_admission",
-             "src/repro_torch/csrc/semaphore_admission.cu",
-             "src/repro/kernels/semaphore/kernel.py:94")):
+    for name, source, replaces, path in KERNELS:
         k = ks[name]
-        rows.append({"name": name, "route": "cuda", "source": source,
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"src/repro_torch/csrc/{source}",
                      "replaces": replaces,
-                     "launches": launches.get(name, 0),
+                     "launches": out.get(path, {}).get(name, 0),
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+                     "kernel_ms": k["kernel_ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"],
-                     "library_ms": k["library_ms"]})
-    return {"kernels": rows, "launches": launches, "card": out.get("card")}
+                     "library_ms": k["library_ms"], "shape": k["shape"]})
+    return {"kernels": rows, "launches": out.get("launches", {}),
+            "launches_primitives": out.get("launches_primitives", {}),
+            "card": out.get("card")}
 
 
 PHASES = {1: ("card", phase_card), 2: ("kernels", phase_kernels),
           3: ("parity", phase_parity), 4: ("serve", phase_serve),
-          5: ("profile", phase_profile)}
+          5: ("profile", phase_profile), 6: ("primitives", phase_primitives)}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4",
-                    help="comma-separated phases to run (default: 1-4; "
-                         "5, the profile, runs only when named)")
+    ap.add_argument("--phases", default="1,2,3,4,6",
+                    help="comma-separated phases to run (default: 1-4 "
+                         "and 6; 5, the profile, runs only when named)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():

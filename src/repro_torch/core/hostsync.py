@@ -1,7 +1,7 @@
 """Real (threading) implementations of the paper's primitives for the host
 control plane (a copy of ``repro.core.hostsync`` for the PyTorch port:
-the mutexes and semaphores the serving engine runs — the futex mutex and
-the host barriers are not ported yet).
+the mutexes and semaphores the serving engine runs and the barriers the
+sync library plans with — the futex mutex is not ported yet).
 
 A multi-host training deployment needs exactly the operations the paper
 builds: barriers (checkpoint quiescence, mesh reconfiguration), mutexes
@@ -36,7 +36,7 @@ from __future__ import annotations
 import collections
 import threading
 import time
-from typing import Callable, Optional
+from typing import Callable, List, Optional, Sequence
 
 from .abstraction import MachineAbstraction, WaitStrategy, select_wait_strategy
 
@@ -462,3 +462,93 @@ class SpinSemaphore:
             if old > 0:
                 self._word.exch(old + 1)
                 return
+
+
+# ---------------------------------------------------------------------------
+# Barriers
+# ---------------------------------------------------------------------------
+
+class XFBarrier:
+    """Xiao-Feng decentralized flag barrier, host edition (paper Section 5).
+
+    Epoch-numbered arrive/release flags, one word per participant (so every
+    write is to the writer's own word — no atomics anywhere). Participant 0
+    is the master: it scans arrive flags and then broadcasts release flags.
+    Reusable across epochs without re-zeroing.
+
+    ``required`` mirrors the CUDA kernel's membership mask
+    (``kernels/xf_barrier``): the master only waits for required ranks, so
+    an evicted participant stops blocking the barrier without resizing it.
+    Default: everyone is required.
+    """
+
+    def __init__(self, parties: int,
+                 strategy: WaitStrategy = WaitStrategy.SPIN_BACKOFF,
+                 required: Optional[Sequence[bool]] = None):
+        if parties < 1:
+            raise ValueError("parties must be >= 1")
+        if required is not None and len(required) != parties:
+            raise ValueError("required mask must have one entry per party")
+        self.parties = parties
+        self._arrive: List[int] = [0] * parties
+        self._release: List[int] = [0] * parties
+        self._epochs: List[int] = [0] * parties  # per-participant epoch
+        self._required: List[bool] = (
+            [True] * parties if required is None
+            else [bool(r) for r in required])
+        self._strategy = strategy
+
+    def arrive_and_wait(self, rank: int,
+                        timeout: Optional[float] = None) -> bool:
+        epoch = self._epochs[rank] + 1
+        self._epochs[rank] = epoch
+        self._arrive[rank] = epoch
+        bo = Backoff(1, 16)
+        if rank == 0:
+            ok = _wait(
+                lambda: all(a >= epoch for a, req
+                            in zip(self._arrive, self._required) if req),
+                self._strategy, bo, timeout,
+            )
+            if not ok:
+                return False
+            for i in range(self.parties):
+                self._release[i] = epoch
+            return True
+        return _wait(lambda: self._release[rank] >= epoch,
+                     self._strategy, bo, timeout)
+
+    def waiting_on(self, rank_epoch: Optional[int] = None) -> List[int]:
+        """Required ranks that have not yet arrived at the master's
+        current epoch — the straggler set the coordinator reports."""
+        epoch = rank_epoch if rank_epoch is not None else self._epochs[0]
+        return [i for i, (a, req)
+                in enumerate(zip(self._arrive, self._required))
+                if req and a < epoch]
+
+
+class CentralizedBarrier:
+    """Two-stage atomic-counter barrier (the paper's baseline)."""
+
+    def __init__(self, parties: int,
+                 strategy: WaitStrategy = WaitStrategy.SPIN_BACKOFF):
+        self.parties = parties
+        self._count = AtomicWord(0)
+        self._generation = 0
+        self._strategy = strategy
+
+    def arrive_and_wait(self, rank: int = 0,
+                        timeout: Optional[float] = None) -> bool:
+        gen = self._generation
+        if self._count.fetch_add(1) == self.parties - 1:
+            self._count.store(0)
+            self._generation = gen + 1
+            return True
+        return _wait(lambda: self._generation != gen, self._strategy,
+                     Backoff(1, 16), timeout)
+
+
+def make_barrier(parties: int, kind: str = "auto", **kw):
+    if kind == "auto":
+        kind = "xf"
+    return {"xf": XFBarrier, "centralized": CentralizedBarrier}[kind](parties, **kw)

@@ -85,6 +85,12 @@ class CudaKernel:
     ``launches`` counts successful launches of this kernel and is
     touched nowhere else: a run can show that its main path went through
     the kernel by zeroing it first and reading it after.
+
+    Kernels that wait on each other (the lock, the barrier's hand-offs)
+    carry a poll budget and report its expiry in an error word on the
+    device. :meth:`check_word` reads it after a launch and raises;
+    a timing loop, which must not synchronise inside its timed window,
+    passes ``check=False`` and calls :meth:`check_pending` after it.
     """
 
     def __init__(self, source: str, symbol: str, argtypes: Sequence):
@@ -94,6 +100,7 @@ class CudaKernel:
         self.launches = 0
         self._lib: Optional[ctypes.CDLL] = None
         self._fn = None
+        self._pending: list = []
 
     def load(self):
         if self._fn is None:
@@ -115,3 +122,18 @@ class CudaKernel:
                 f"{self.symbol}: CUDA error {code} "
                 f"({self._err(code).decode(errors='replace')})")
         self.launches += 1
+
+    def check_word(self, word, what: str, check: bool = True) -> None:
+        """Raise if the device error word ``word`` (a one-element tensor)
+        is set; with ``check=False`` keep it for :meth:`check_pending`."""
+        self._pending.append((word, what))
+        if check:
+            self.check_pending()
+
+    def check_pending(self) -> None:
+        """Read every error word kept since the last check; raise on the
+        first that is set."""
+        pending, self._pending = self._pending, []
+        for word, what in pending:
+            if int(word.item()) != 0:
+                raise RuntimeError(f"{self.symbol}: {what}")

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.abstraction import PrimitiveKind, WaitStrategy
+from repro_torch.core.device import resolve_device
 from repro_torch.sync import SyncLibrary
 
 Tree = Dict[str, Any]
@@ -324,7 +325,8 @@ class PagedSlotPool:
     ``max_len`` sizes the arena (default ``ceil(K * max_len /
     page_size)`` pages, the contiguous layout's bytes) while one slot may
     grow to ``max_pages_per_slot * page_size`` tokens (default two rows'
-    worth) — the point of paging.
+    worth) — the point of paging. The arena lives on ``device``
+    (``cuda`` unless the caller asks for ``cpu``).
     """
 
     def __init__(self, model, capacity: int, max_len: int, *,
@@ -333,13 +335,13 @@ class PagedSlotPool:
                  sync: Optional[SyncLibrary] = None,
                  expected_contention: float = 0.25,
                  wait_mode: Optional[str] = None,
-                 device="cpu"):
+                 device=None):
         if capacity < 1:
             raise ValueError("slot pool capacity must be >= 1")
         self.capacity = capacity
         self.max_len = max_len
         self.page_size = page_size
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         if num_pages is None:
             num_pages = -(-capacity * max_len // page_size)
         self.pages = PagePool(num_pages, page_size, sync=sync,

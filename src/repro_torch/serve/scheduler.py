@@ -36,7 +36,9 @@ def plan_admission(arrivals_s: np.ndarray, service_s: np.ndarray,
                    capacity: int, *, lib: Optional[SyncLibrary] = None,
                    device=None) -> SemaphorePlan:
     """Deterministic Algorithm-5 timeline for a FIFO request queue,
-    planned on ``device``'s planner (the CUDA kernel on a card)."""
+    planned on ``device``'s planner: the CUDA kernel on ``cuda`` (the
+    default, which raises without a card), its plain version on
+    ``cpu``."""
     lib = lib if lib is not None else SyncLibrary.host_default()
     return lib.plan_semaphore(arrivals_s, service_s, capacity,
                               backend=lib.planning_backend_name(device))

@@ -9,7 +9,11 @@ from repro_torch.sync.backends import (  # noqa: F401
 )
 from repro_torch.sync.library import HOST_NOMINAL, SyncLibrary  # noqa: F401
 from repro_torch.sync.protocols import (  # noqa: F401
+    Barrier,
+    BarrierPlan,
+    BoundedMutexPlan,
     Mutex,
+    MutexPlan,
     Semaphore,
     SemaphorePlan,
 )

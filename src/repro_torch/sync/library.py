@@ -7,12 +7,15 @@ triple and every axis can be pinned:
     lib = SyncLibrary.host_default()           # nominal host abstraction
     m = lib.mutex(kind="ticket")               # live Algorithm-3 mutex
     s = lib.semaphore(8)                       # live Algorithm-5 semaphore
+    b = lib.barrier(4)                         # live XF barrier
     plan = lib.plan_semaphore(arrivals, holds, capacity=8)
+    mplan = lib.plan_mutex(arrival_perm, backend="cuda")
+    bplan = SyncLibrary(machine=FERMI).plan_barrier(present)  # on cuda
     planner = lib.semaphore_planner(8, window=64, device="cuda")
 
-Live objects run on the host; plans run on the ``cuda`` kernel or its
-plain version (``ref``). Mutex and barrier plans, and the barriers
-themselves, wait for the slices that port their kernels.
+Live objects run on the host; plans run on the ``cuda`` kernels, their
+plain versions (``ref``), or as observed executions of the live
+primitives on real threads (``host``).
 """
 
 from __future__ import annotations
@@ -21,7 +24,6 @@ import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
-import torch
 
 from repro_torch.core.abstraction import (
     BenchTimes,
@@ -34,8 +36,15 @@ from repro_torch.core.abstraction import (
     select_impl,
 )
 
+from repro_torch.core.device import resolve_device
+
 from .backends import SyncBackend, make_backends
-from .protocols import SemaphorePlan
+from .protocols import (
+    BarrierPlan,
+    BoundedMutexPlan,
+    MutexPlan,
+    SemaphorePlan,
+)
 
 # A nominal host abstraction for when probing is not worth it (serving
 # constructors). Classifies as "balanced": fa mutex, sleeping semaphore.
@@ -45,10 +54,6 @@ HOST_NOMINAL = MachineAbstraction(
     writes=BenchTimes(1.0, 0.5, 5.0, 2.5, 1.2, 0.6),
     saturated_blocks=8,
 )
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet")
 
 
 @dataclasses.dataclass
@@ -61,6 +66,7 @@ class SyncLibrary:
     backend: Optional[str] = None
     mutex_kind: Optional[str] = None
     semaphore_kind: Optional[str] = None
+    barrier_kind: Optional[str] = None
     strategy: Optional[WaitStrategy] = None
     _backends: Dict[str, SyncBackend] = dataclasses.field(
         default_factory=make_backends, init=False, repr=False)
@@ -91,14 +97,13 @@ class SyncLibrary:
 
     def planning_backend_name(self, device=None) -> str:
         """Backend for hot-loop planning: the pinned/selected backend if
-        it plans cheaply, else the CUDA kernel when ``device`` is a CUDA
-        device and its plain version otherwise."""
+        it plans cheaply, else the planner of ``device`` — the CUDA
+        kernel on ``cuda`` (the default, which raises without a card),
+        its plain version only when the caller asks for ``cpu``."""
         name = self.backend_name()
         if self._backend(name).fast_plans:
             return name
-        if device is not None and torch.device(device).type == "cuda":
-            return "cuda"
-        return "ref"
+        return "cuda" if resolve_device(device).type == "cuda" else "ref"
 
     # ------------------------------------------------------------- live form
     def mutex(self, kind: Optional[str] = None, *,
@@ -124,6 +129,12 @@ class SyncLibrary:
         return self._backend().semaphore(initial, kind,
                                          self.strategy or c.strategy)
 
+    def barrier(self, parties: int, kind: Optional[str] = None):
+        c = self.choice(PrimitiveKind.BARRIER)
+        kind = kind or self.barrier_kind or c.algorithm
+        return self._backend().barrier(parties, kind,
+                                       self.strategy or c.strategy)
+
     # ------------------------------------------------------------- plan form
     def plan_semaphore(self, arrivals, holds, capacity: int, *,
                        backend: Optional[str] = None,
@@ -135,19 +146,104 @@ class SyncLibrary:
         holds = np.asarray(holds, np.float32)
         perm = np.argsort(arrivals, kind="stable")
         bk = self._backend(backend)
-        g, r, w, _ = bk.plan_semaphore(arrivals[perm], holds[perm],
-                                       capacity, window=window)
+        g, r, w, order = bk.plan_semaphore(arrivals[perm], holds[perm],
+                                           capacity, window=window)
         inv = np.argsort(perm, kind="stable")
-        return SemaphorePlan(arrivals=arrivals, grant=np.asarray(g)[inv],
-                             release=np.asarray(r)[inv],
-                             waited=np.asarray(w)[inv], capacity=capacity,
-                             backend=bk.name)
+        return SemaphorePlan(
+            arrivals=arrivals, grant=np.asarray(g)[inv],
+            release=np.asarray(r)[inv], waited=np.asarray(w)[inv],
+            capacity=capacity, backend=bk.name,
+            order=None if order is None else perm[np.asarray(order)])
 
-    def plan_mutex(self, *args, **kw):
-        _not_ported("plan_mutex (the ticket-lock kernel)")
+    def plan_mutex(self, arrival, m=None, b=None, *,
+                   backend: Optional[str] = None,
+                   window: Optional[int] = None) -> MutexPlan:
+        """FIFO ticket-mutex timeline for requesters in ``arrival`` order
+        (a permutation of 0..N-1). ``m``/``b`` parameterize the
+        order-sensitive critical-section chain (default: identity)."""
+        arrival = np.asarray(arrival, np.int64)
+        n = arrival.shape[0]
+        m = np.ones(n, np.float32) if m is None else np.asarray(m, np.float32)
+        b = np.zeros(n, np.float32) if b is None else np.asarray(b, np.float32)
+        bk = self._backend(backend)
+        g, t, acc = bk.plan_mutex(arrival, m, b, window=window)
+        return MutexPlan(arrival=arrival, grant_order=np.asarray(g),
+                         turn_trace=np.asarray(t), acc=float(acc),
+                         backend=bk.name)
 
-    def plan_barrier(self, *args, **kw):
-        _not_ported("plan_barrier (the XF-barrier kernel)")
+    def plan_mutex_bounded(self, arrivals, holds, timeouts, *,
+                           backend: Optional[str] = None,
+                           window: Optional[int] = None
+                           ) -> BoundedMutexPlan:
+        """Bounded-wait FIFO mutex timeline: the plan form of
+        ``lock(timeout=)``.
+
+        Each requester carries a wait budget in ``timeouts`` (np.inf =
+        unbounded). A requester whose turn would arrive after its budget
+        burns its ticket — it is never granted and holds for zero time,
+        exactly the live ``TicketMutex`` discipline. Burned tickets
+        shorten every later wait, so the timeline is computed as a fixed
+        point: replan the capacity-1 semaphore timeline (a mutex *is*
+        the capacity-1 case, and the semaphore plan is the one form
+        every backend reports per-requester grant times for; on
+        ``cuda`` it is the semaphore kernel) with burned holds zeroed
+        until the burned set stabilizes. Decisions fix in FIFO-prefix
+        order, so at most N+1 replans are needed.
+
+        The ``granted`` mask is the cross-backend equivalence object:
+        every backend must agree with the step-exact numpy oracle
+        (``kernels.ticket_lock.ticket_lock_bounded_oracle``)."""
+        arrivals = np.asarray(arrivals, np.float32)
+        holds = np.asarray(holds, np.float32)
+        timeouts = np.asarray(timeouts, np.float32)
+        n = arrivals.shape[0]
+        if holds.shape != arrivals.shape or timeouts.shape != arrivals.shape:
+            raise ValueError("arrivals/holds/timeouts must align")
+        granted = np.ones(n, bool)
+        live = holds.copy()
+        plan = None
+        iterations = 0
+        for _ in range(n + 2):
+            plan = self.plan_semaphore(arrivals, live, 1, backend=backend,
+                                       window=window)
+            iterations += 1
+            # equality is "granted": the live mutex times out only when
+            # the deadline strictly passes (small tolerance for the
+            # float32 event clocks)
+            now = (plan.grant - arrivals) <= timeouts + 1e-4
+            if np.array_equal(now, granted):
+                break
+            granted = now
+            live = np.where(granted, holds, 0.0).astype(np.float32)
+        else:
+            raise RuntimeError("bounded mutex plan did not stabilize")
+        return BoundedMutexPlan(
+            arrivals=arrivals, holds=holds, timeouts=timeouts,
+            grant=np.asarray(plan.grant),
+            release=np.asarray(plan.release),
+            granted=granted, backend=plan.backend,
+            iterations=iterations)
+
+    def plan_barrier(self, present, required=None, *, epoch: int = 1,
+                     flags=None, max_polls: int = 1024,
+                     backend: Optional[str] = None,
+                     window: Optional[int] = None) -> BarrierPlan:
+        """One XF-barrier epoch: ``present`` slots arrive, the master
+        checks ``required`` slots (default: all)."""
+        present = np.asarray(present, np.int64)
+        n = present.shape[0]
+        required = (np.ones(n, np.int64) if required is None
+                    else np.asarray(required, np.int64))
+        flags = (np.zeros(n, np.int64) if flags is None
+                 else np.asarray(flags, np.int64))
+        bk = self._backend(backend)
+        a, rel, done, strag = bk.plan_barrier(
+            flags, epoch, present, required, max_polls=max_polls,
+            window=window)
+        return BarrierPlan(epoch=int(epoch), arrive=np.asarray(a),
+                           release=np.asarray(rel), done=int(done),
+                           stragglers=np.asarray(strag), required=required,
+                           backend=bk.name)
 
     # ------------------------------------------------------------- hot loops
     def semaphore_planner(

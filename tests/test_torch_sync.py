@@ -8,6 +8,7 @@ import threading
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import abstraction as jabs
 from repro.core import hostsync as jhs
@@ -229,17 +230,44 @@ def test_selection_matches_reference(jm, tm):
                 == jabs.select_wait_strategy(jm, c).value)
 
 
-def test_planning_backend_follows_the_device():
+def test_planning_backend_follows_the_device(monkeypatch):
     lib = SyncLibrary.host_default()
     assert lib.backend_name() == "host"
-    assert lib.planning_backend_name("cuda") == "cuda"
     assert lib.planning_backend_name("cpu") == "ref"
     assert SyncLibrary.host_default(backend="ref").planning_backend_name(
         "cuda") == "ref"
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        lib.plan_mutex([0, 1])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        lib.plan_semaphore([0.0], [1.0], 1, backend="host")
+    # the host backend (the library's default) plans as the reference's
+    # does: mutex and barrier plans and the observed semaphore timeline
+    plan = lib.plan_mutex([1, 0])
+    assert plan.backend == "host" and plan.fifo
+    assert plan.turn_trace.tolist() == [0, 1]
+    sp = lib.plan_semaphore([0.0], [1.0], 1, backend="host")
+    assert sp.backend == "host" and sp.grant.tolist() == [0.0]
+    assert lib.plan_barrier([1, 1]).done == 1
+    # naming cuda needs a card; with one, hot-loop plans go to the kernel
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert lib.planning_backend_name("cuda") == "cuda"
+    assert lib.planning_backend_name() == "cuda"
+
+
+def test_planning_without_a_device_needs_the_card():
+    """No device named means ``cuda``: without a card the planners raise
+    rather than carry on with the plain version on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    lib = SyncLibrary.host_default()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lib.planning_backend_name()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lib.semaphore_planner(2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tsched.plan_admission(np.zeros(2, np.float32),
+                              np.ones(2, np.float32), 1, lib=lib)
+    assert tsched.plan_admission(np.zeros(2, np.float32),
+                                 np.ones(2, np.float32), 1, lib=lib,
+                                 device="cpu").backend == "ref"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tkv.PagedSlotPool(None, 2, 8)
 
 
 @pytest.mark.parametrize("seed", range(4))

@@ -1,0 +1,153 @@
+"""XF flag barrier: the port's plain version and windowed planner
+against the JAX package's Pallas kernel (interpret mode) and its
+pure-jnp oracle on the cases of tests/test_kernels.py — every output
+exact — plus stale flags, random membership and windowed padding.
+
+The CUDA kernel runs only on a card (``test_cuda_*`` skip without one;
+``chip_smoke.py`` phase 2 checks it exact on the card every run).
+"""
+
+import warnings
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.xf_barrier import ops as jops
+from repro.kernels.xf_barrier.ref import xf_barrier_ref
+from repro_torch.kernels import xf_barrier as txb
+
+
+def _both(arrive, epoch, present, required):
+    """(port outputs, Pallas outputs, oracle outputs) as numpy."""
+    j = [jnp.asarray(x, jnp.int32) for x in (arrive, present, required)]
+    want = jops.xf_barrier(j[0], jnp.int32(epoch), j[1], j[2],
+                           interpret=True)
+    want_ref = xf_barrier_ref(j[0], jnp.int32(epoch), j[1], j[2])
+    t = [torch.as_tensor(np.asarray(x, np.int32))
+         for x in (arrive, present, required)]
+    got = txb.xf_barrier(t[0], epoch, t[1], t[2])
+    return ([g.numpy() for g in got], [np.asarray(w) for w in want],
+            [np.asarray(w) for w in want_ref])
+
+
+def _assert_same(arrive, epoch, present, required):
+    got, want, want_ref = _both(arrive, epoch, present, required)
+    for g, w, r in zip(got, want, want_ref):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(g, r)
+    assert all(g.dtype == np.int32 for g in got)
+    return got
+
+
+@pytest.mark.parametrize("n", [3, 8, 64, 130, 200])
+def test_all_present(n):
+    ones = np.ones(n, np.int32)
+    got = _assert_same(np.zeros(n, np.int32), 1, ones, ones)
+    assert int(got[2]) == 1
+
+
+@pytest.mark.parametrize("n,absent", [(8, [2]), (64, [0, 63]), (16, [5, 6])])
+def test_stragglers(n, absent):
+    present = np.ones(n, np.int32)
+    present[absent] = 0
+    arrive, release, done, strag = _assert_same(
+        np.zeros(n, np.int32), 3, present, np.ones(n, np.int32))
+    assert int(done) == 0
+    assert sorted(np.flatnonzero(strag).tolist()) == sorted(absent)
+    assert np.all(release == 0)
+
+
+def test_epoch_reuse():
+    n = 10
+    ones = torch.ones(n, dtype=torch.int32)
+    flags = txb.fresh_flags(n, device="cpu")
+    for epoch in (1, 2, 3):
+        flags, release, done, _ = txb.xf_barrier(flags, epoch, ones, ones)
+        assert int(done) == 1
+        assert np.all(release.numpy() == epoch)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_random_membership_over_stale_flags(seed):
+    """Random present/required masks over flags left by earlier epochs
+    (some ahead of this epoch): a required slot that is absent but
+    already ahead counts as arrived, as in the reference."""
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(1, 80))
+    arrive = rng.integers(0, 5, n).astype(np.int32)
+    present = (rng.uniform(size=n) < 0.8).astype(np.int32)
+    required = (rng.uniform(size=n) < 0.7).astype(np.int32)
+    _assert_same(arrive, int(rng.integers(1, 5)), present, required)
+
+
+@pytest.mark.parametrize("n,window", [(0, 32), (5, 32), (33, 32), (70, 16)])
+def test_window_matches_reference_window(n, window):
+    rng = np.random.default_rng(n + window)
+    arrive = rng.integers(0, 3, n).astype(np.int32)
+    present = (rng.uniform(size=n) < 0.85).astype(np.int32)
+    required = (rng.uniform(size=n) < 0.9).astype(np.int32)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        want = jops.xf_barrier_window(arrive, 2, present, required,
+                                      window=window, use_kernel=False)
+        got = txb.xf_barrier_window(arrive, 2, present, required,
+                                    window=window, device="cpu")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))
+    assert got[0].shape == (n,) and got[3].shape == (n,)
+
+
+def test_pad_slots_are_neither_present_nor_required():
+    arrays = tuple(np.ones(3, np.int32) for _ in range(3))
+    padded = txb._pad_barrier(arrays, 3, 8)
+    for p, j in zip(padded, jops._pad_barrier(arrays, 3, 8)):
+        np.testing.assert_array_equal(p, j)
+    assert not padded[1][3:].any() and not padded[2][3:].any()
+
+
+def test_wrapper_checks_shapes_and_devices():
+    z = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match=r"expected \(N,\)"):
+        txb.xf_barrier(z, 1, z[:3], z)
+    with pytest.raises(ValueError, match="max_polls"):
+        txb.xf_barrier(z, 1, z, z, max_polls=-1)
+    m = z.to("meta")
+    with pytest.raises(ValueError, match="runs on cuda or cpu"):
+        txb.xf_barrier(m, 1, m, m)
+
+
+def test_entry_points_run_on_the_card_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        txb.xf_barrier_window([0, 0], 1, [1, 1], [1, 1])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        txb.fresh_flags(4)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("n", [1, 64, 1024])
+@pytest.mark.parametrize("case", ["all", "stragglers", "rank0_absent"])
+def test_cuda_kernel_equal_to_plain(cuda_device, n, case):
+    present = np.ones(n, np.int32)
+    if case == "stragglers":
+        present[n // 2] = 0
+    elif case == "rank0_absent":
+        present[0] = 0
+    ts = [torch.from_numpy(x) for x in (np.zeros(n, np.int32), present,
+                                        np.ones(n, np.int32))]
+    before = txb.XF_BARRIER.launches
+    got = txb.xf_barrier(ts[0].to(cuda_device), 1, ts[1].to(cuda_device),
+                         ts[2].to(cuda_device))
+    want = txb.xf_barrier_plain(ts[0], 1, ts[1], ts[2])
+    assert txb.XF_BARRIER.launches == before + 1
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())

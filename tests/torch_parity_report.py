@@ -23,16 +23,25 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import test_torch_attention as ta_test  # noqa: E402
 import test_torch_paged_attention as pa_test  # noqa: E402
 from repro.configs import get_arch as jget_arch  # noqa: E402
+from repro.kernels.membench.ops import make_buffer as jmake_buffer  # noqa: E402,E501
+from repro.kernels.membench.ops import membench as jmembench  # noqa: E402
 from repro.kernels.paged_attention import fused_paged_decode  # noqa: E402
+from repro.kernels.ticket_lock.ops import ticket_lock_run  # noqa: E402
+from repro.kernels.xf_barrier.ops import xf_barrier as jxf_barrier  # noqa: E402,E501
+from repro.sync import SyncLibrary as JSyncLibrary  # noqa: E402
 from repro.models import attention as ja  # noqa: E402
 from repro.models import build_model as jbuild  # noqa: E402
 from repro.models import layers as jl  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.kernels import membench as tmb  # noqa: E402
 from repro_torch.kernels import paged_attention as tpa  # noqa: E402
+from repro_torch.kernels import ticket_lock as ttl  # noqa: E402
+from repro_torch.kernels import xf_barrier as txb  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import layers as tl  # noqa: E402
 from repro_torch.models.bridge import params_from_numpy  # noqa: E402
+from repro_torch.sync import SyncLibrary  # noqa: E402
 
 
 def err(j, t):
@@ -104,9 +113,94 @@ def main():
         nxt = tlog.argmax(-1).numpy().astype(np.int32)
         same &= bool(np.array_equal(jn, nxt))
     rows["LM.decode_step logits (fused, 4 steps)"] = worst
+    rows.update(sync_rows())
     for name, e in rows.items():
         print(json.dumps({"function": name, "max_abs_err": e}))
     print(json.dumps({"function": "LM greedy tokens", "identical": same}))
+
+
+def sync_rows():
+    """The slice-2 kernels and plan forms: the plain versions against the
+    Pallas kernels (interpret mode), the port's host and ref plans
+    against the JAX library's kernel plans, over seeded traces."""
+    rows = {}
+    worst_acc, worst_int = 0.0, 0.0
+    for seed in range(6):
+        rng = np.random.default_rng(seed)
+        n = int(rng.integers(2, 60))
+        arr = rng.permutation(n).astype(np.int32)
+        m = rng.uniform(0.5, 1.5, n).astype(np.float32)
+        b = rng.standard_normal(n).astype(np.float32)
+        want = ticket_lock_run(jnp.asarray(arr), jnp.asarray(m),
+                               jnp.asarray(b), interpret=True)
+        got = ttl.ticket_lock(*(torch.tensor(x) for x in (arr, m, b)))
+        worst_int = max(worst_int, err(want[0], got[0]), err(want[1], got[1]))
+        worst_acc = max(worst_acc, err(want[2], got[2]))
+    rows["ticket_lock plain vs Pallas interpret: grant, trace"] = worst_int
+    rows["ticket_lock plain vs Pallas interpret: acc"] = worst_acc
+    worst = 0.0
+    for seed in range(6):
+        rng = np.random.default_rng(seed)
+        n = int(rng.integers(1, 200))
+        arrive = rng.integers(0, 4, n).astype(np.int32)
+        present = (rng.uniform(size=n) < 0.85).astype(np.int32)
+        required = (rng.uniform(size=n) < 0.8).astype(np.int32)
+        want = jxf_barrier(jnp.asarray(arrive), jnp.int32(2),
+                           jnp.asarray(present),
+                           jnp.asarray(required), interpret=True)
+        got = txb.xf_barrier(torch.tensor(arrive), 2, torch.tensor(present),
+                             torch.tensor(required))
+        worst = max(worst, *(err(w, g) for w, g in zip(want, got)))
+    rows["xf_barrier plain vs Pallas interpret (all outputs)"] = worst
+    worst = 0.0
+    for cont in (True, False):
+        for wr in (True, False):
+            jbuf = jmake_buffer(16)
+            want = jmembench(jbuf, n_steps=16, contentious=cont, write=wr,
+                             repeats=8)
+            got = tmb.membench(torch.tensor(np.asarray(jbuf)), n_steps=16,
+                               contentious=cont, write=wr, repeats=8)
+            worst = max(worst, err(want[0], got[0]), float(np.max(
+                np.abs(np.asarray(want[1]) - got[1].numpy())
+                / np.abs(np.asarray(want[1])))))
+    rows["membench plain vs Pallas interpret (buffer abs, sums rel)"] = worst
+    lib, jlib = SyncLibrary.host_default(), JSyncLibrary.host_default()
+    acc = barrier = bounded = 0.0
+    for seed in range(4):
+        rng = np.random.default_rng(seed)
+        n = int(rng.integers(3, 11))
+        arr = rng.permutation(n).astype(np.int32)
+        want = jlib.plan_mutex(arr, backend="kernel")
+        for be in ("host", "ref"):
+            acc = max(acc, abs(lib.plan_mutex(arr, backend=be).acc
+                               - want.acc), err(
+                lib.plan_mutex(arr, backend=be).grant_order,
+                want.grant_order))
+        present = (rng.uniform(size=n) < 0.8).astype(np.int64)
+        jb = jlib.plan_barrier(present, backend="kernel")
+        for be in ("host", "ref"):
+            pb = lib.plan_barrier(present, backend=be)
+            barrier = max(barrier, err(pb.released, jb.released),
+                          err(pb.stragglers, jb.stragglers),
+                          abs(pb.done - jb.done))
+        arrivals = np.sort(rng.uniform(0, 2, n)).astype(np.float32)
+        holds = rng.uniform(0.5, 1.5, n).astype(np.float32)
+        timeouts = rng.choice([0.0, 0.7, 2.5, np.inf], size=n).astype(
+            np.float32)
+        jm = jlib.plan_mutex_bounded(arrivals, holds, timeouts,
+                                     backend="kernel")
+        for be in ("host", "ref"):
+            pm = lib.plan_mutex_bounded(arrivals, holds, timeouts,
+                                        backend=be)
+            bounded = max(bounded, err(pm.grant, jm.grant),
+                          err(pm.granted.astype(int),
+                              jm.granted.astype(int)))
+    rows["plan_mutex host/ref vs JAX kernel (grant order, acc)"] = acc
+    rows["plan_barrier host/ref vs JAX kernel (done, released, "
+         "stragglers)"] = barrier
+    rows["plan_mutex_bounded host/ref vs JAX kernel (grant, granted)"] = \
+        bounded
+    return rows
 
 
 if __name__ == "__main__":

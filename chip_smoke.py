@@ -14,9 +14,11 @@ JSON line with its seconds:
              parallel, one nvcc each
   2 kernels  each kernel against its plain torch version on the card,
              with its time, the plain version's time, the bound and the
-             library yardstick (the ticket lock and the barrier over
-             many seeded traces at N 64 and 1024, every membench cell at
-             132 and 1056 steps)
+             library yardstick (paged decode also on negative table
+             entries, against its split model, on a long-context row of
+             4 x 4096 positions, and two launches bit-equal; the ticket
+             lock and the barrier over many seeded traces at N 64 and
+             1024, every membench cell at 132 and 1056 steps)
   3 parity   reduced qwen3-14b served on cuda (kernels) and on cpu
              (plain versions) from the same weights and requests:
              greedy streams and grant logs identical
@@ -67,6 +69,9 @@ REDUCED = dict(capacity=3, requests=6, prompt_min=5, prompt_max=24,
 # The paper's Section-3 cell size: 8 CTAs per SM of 132, 1000 accesses.
 MEMBENCH_CELL = dict(n_steps=1056, repeats=1000)
 
+# every kernel of the paged-decode op (the profiler filters read it)
+DECODE_KERNELS = ("paged_decode_kernel",)
+
 SOURCES = ["paged_decode.cu", "semaphore_admission.cu", "ticket_lock.cu",
            "xf_barrier.cu", "membench.cu"]
 
@@ -107,15 +112,17 @@ def cuda_ms(fn, reps: int = 50, flush_mb: int = 64) -> float:
     return times[len(times) // 2]
 
 
-def kernel_ms(fn, name: str, reps: int = 20):
-    """Mean device time in ms of the kernels whose name holds ``name``
-    over ``reps`` calls of ``fn``, from torch.profiler (CUPTI): the
-    kernel alone. An event pair around a call also counts the wrapper's
-    small fills and the host's gaps between its ops, which for these
+def kernel_ms(fn, name, reps: int = 20):
+    """Mean device time in ms per call of ``fn`` of the kernels whose
+    name holds ``name`` (a string, or a tuple naming every kernel of the
+    op), over ``reps`` calls, from torch.profiler (CUPTI): the kernels
+    alone. An event pair around a call also counts the wrapper's small
+    fills and the host's gaps between its ops, which for these
     latency-bound kernels can be most of the time. ``None`` when the
-    profiler shows no device time for it."""
+    profiler shows no device time for them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    names = (name,) if isinstance(name, str) else tuple(name)
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -123,17 +130,16 @@ def kernel_ms(fn, name: str, reps: int = 20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us, count = 0.0, 0
+    total_us = 0.0
     for evt in prof.key_averages():
-        if name not in evt.key or "CUDA" not in str(
+        if not any(n in evt.key for n in names) or "CUDA" not in str(
                 getattr(evt, "device_type", "")):
             continue
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(evt, "self_cuda_time_total", 0.0)
         total_us += dev_us
-        count += evt.count
-    return total_us / count / 1e3 if count and total_us else None
+    return total_us / reps / 1e3 if total_us else None
 
 
 def host_ms(fn, reps: int = 20) -> float:
@@ -157,6 +163,30 @@ def bound_ms(nbytes: float, ops: float, dtype: str):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def ptxas_summary(text):
+    """``{"<dtype> hd<HD> gm<GM>": [registers, spill bytes, smem bytes]}``
+    for each instantiation of the decode kernel, from ``-Xptxas -v``."""
+    import re
+    rows, name, spill = {}, None, 0
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            t = re.search(r"paged_decode_kernelI(\w+?)Li(\d+)ELi(\d+)E",
+                          m.group(1))
+            name = (f"{'bf16' if 'bfloat16' in t.group(1) else 'f32'} "
+                    f"hd{t.group(2)} gm{t.group(3)}") if t else None
+            spill = 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", ln)
+        if m and name:
+            rows[name] = [int(m.group(1)), spill, int(m.group(2) or 0)]
+    return rows
+
+
 # ------------------------------------------------------------ phase 1: card
 def phase_card(out):
     from repro_torch.kernels import build
@@ -172,9 +202,10 @@ def phase_card(out):
     ptxas = {}
     for src, lib in libs.items():
         log = lib.with_name(lib.name + ".log")
-        ptxas[src] = [ln.strip() for ln in log.read_text().splitlines()
-                      if "registers" in ln or "spill" in ln][:6] \
-            if log.is_file() else []
+        text = log.read_text() if log.is_file() else ""
+        ptxas[src] = ptxas_summary(text) if src == "paged_decode.cu" else [
+            ln.strip() for ln in text.splitlines()
+            if "registers" in ln or "spill" in ln][:6]
     out["card"] = card
     return {"card": card, "nvcc": build.nvcc(),
             "build_s": time.perf_counter() - t0, "ptxas": ptxas}
@@ -231,38 +262,94 @@ def decode_work(q, k, pages, lens, window=None):
     return nbytes, ops
 
 
-def phase_kernels(out):
-    import numpy as np
+def within_bf16(got, want, tol):
+    """Both accumulate in fp32; the last rounding to bf16 may fall either
+    side of a tie, so one bf16 ulp of the value rides on ``tol``."""
+    got, want = got.float(), want.float()
+    excess = (got - want).abs() - tol - want.abs() * 2.0 ** -7
+    return float(excess.max()) <= 0.0, float((got - want).abs().max())
+
+
+def sdpa_ms(q, k, v, pages, lens):
+    """Library yardstick, never called by the port: SDPA over the
+    gathered, head-expanded view with the length mask (the gather is not
+    timed)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import paged_attention as pa
-    from repro_torch.kernels import semaphore as sem
+    b, kvh, g, hd = q.shape
+    idx = pages.long().clamp(0, k.shape[0] - 1)
+    kb = k[idx].reshape(b, -1, kvh, hd)
+    vb = v[idx].reshape(b, -1, kvh, hd)
+    ke = kb.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+    ve = vb.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+    qh = q.reshape(b, kvh * g, 1, hd)
+    mask = (torch.arange(ke.shape[2], device="cuda")[None]
+            < lens.long()[:, None])[:, None, None, :]
+    return cuda_ms(lambda: F.scaled_dot_product_attention(
+        qh, ke, ve, attn_mask=mask))
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    res = {}
-    # ---- paged_decode: the grid of the reference's differential tests
-    tol_f32 = 1e-5
+
+def time_decode(q, k, v, pages, lens):
+    """Call, kernel, plain and SDPA times and the bound at one shape."""
+    from repro_torch.kernels import paged_attention as pa
+    nbytes, ops = decode_work(q, k, pages, lens)
+    bms, bby = bound_ms(nbytes, ops, "bfloat16")
+    splits, pps = pa.plan_splits(pages.shape[1], q.shape[0], q.shape[1],
+                                 pa.sm_count(q.device))
+    return {"ms": cuda_ms(lambda: pa.paged_decode(q, k, v, pages, lens)),
+            "kernel_ms": kernel_ms(lambda: pa.paged_decode(
+                q, k, v, pages, lens), DECODE_KERNELS),
+            "plain_ms": cuda_ms(lambda: pa.paged_decode_plain(
+                q, k, v, pages, lens)),
+            "library_ms": sdpa_ms(q, k, v, pages, lens),
+            "bound_ms": bms, "bound_by": bby, "bytes": nbytes, "ops": ops,
+            "splits": splits, "pages_per_split": pps}
+
+
+def check_paged_decode():
+    """The decode kernel against its plain version: the reference's grid
+    in f32 (page sizes, GQA shapes, windows, dead and empty rows) at hd 32
+    and 128; a table with negative entries and sentinels; the kernel's
+    split model; the main path's shape in f32 and bf16; the long-context
+    row in bf16; two launches bit-equal at both timed shapes."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    tol_f32, tol_bf16 = 1e-5, 2e-3
     worst = 0.0
     n_cases = 0
-    for ps in (1, 4, 16):
-        for kv, g in ((8, 1), (2, 4), (1, 8)):
-            for window in (None, 5):
-                q, k, v, pages, lens = decode_case(
-                    ps * 10 + kv, b=4, kv=kv, g=g, hd=32, ps=ps,
-                    num_pages=24, p_cap=5, dtype=torch.float32,
-                    dead_row=True)
-                got = pa.paged_decode(q, k, v, pages, lens, window=window)
-                want = pa.paged_decode_plain(q, k, v, pages, lens,
-                                             window=window)
-                torch.cuda.synchronize()
-                err = float((got - want).abs().max())
-                check(err <= tol_f32, f"paged_decode ps={ps} kv={kv} g={g} "
-                      f"window={window}: max abs err {err} > {tol_f32}")
-                check(bool((got[-1] == 0).all()),
-                      "paged_decode: all-sentinel row is not exact zeros")
-                worst = max(worst, err)
-                n_cases += 1
+    for hd in (32, 128):
+        for ps in (1, 4, 16):
+            for kv, g in ((8, 1), (2, 4), (1, 8), (8, 5)):
+                for window in (None, 5):
+                    q, k, v, pages, lens = decode_case(
+                        ps * 10 + kv, b=4, kv=kv, g=g, hd=hd, ps=ps,
+                        num_pages=24, p_cap=5, dtype=torch.float32,
+                        dead_row=True)
+                    got = pa.paged_decode(q, k, v, pages, lens, window=window)
+                    want = pa.paged_decode_plain(q, k, v, pages, lens,
+                                                 window=window)
+                    torch.cuda.synchronize()
+                    err = float((got - want).abs().max())
+                    check(err <= tol_f32, f"paged_decode hd={hd} ps={ps} "
+                          f"kv={kv} g={g} window={window}: max abs err "
+                          f"{err} > {tol_f32}")
+                    check(bool((got[-1] == 0).all()) and bool(
+                        (got[1] == 0).all()), "paged_decode: an all-sentinel "
+                          "or length-0 row is not exact zeros")
+                    worst = max(worst, err)
+                    n_cases += 1
+    # negative entries read page 0 (the TPU kernel's clip); sentinels mask
+    q, k, v, pages, lens = decode_case(11, b=4, kv=2, g=4, hd=128, ps=4,
+                                       num_pages=24, p_cap=6,
+                                       dtype=torch.float32)
+    lens[0], lens[2], lens[3] = 24, 17, 9
+    pages[0, :] = torch.tensor([3, -1, 5, 24, -7, 2], dtype=torch.int32)
+    pages[2, :5] = torch.tensor([-2, 7, 30, 1, 0], dtype=torch.int32)
+    err_neg = float((pa.paged_decode(q, k, v, pages, lens)
+                     - pa.paged_decode_plain(q, k, v, pages, lens))
+                    .abs().max())
+    check(err_neg <= tol_f32, f"paged_decode negative entries: {err_neg} "
+          f"> {tol_f32}")
     # ---- full width, the shapes the main path gives the kernel
     c = SERVE
     max_len = c["prompt_max"] + c["new_tokens"] + 1
@@ -272,51 +359,68 @@ def phase_kernels(out):
                 num_pages=num_pages, p_cap=p_cap,
                 max_len=c["prompt_max"] + c["new_tokens"])
     q, k, v, pages, lens = decode_case(7, dtype=torch.float32, **full)
-    err_full32 = float((pa.paged_decode(q, k, v, pages, lens)
-                        - pa.paged_decode_plain(q, k, v, pages, lens))
-                       .abs().max())
+    got = pa.paged_decode(q, k, v, pages, lens)
+    want = pa.paged_decode_plain(q, k, v, pages, lens)
+    err_full32 = float((got - want).abs().max())
     check(err_full32 <= tol_f32,
           f"paged_decode full width f32: {err_full32} > {tol_f32}")
+    splits, pps = pa.plan_splits(p_cap, full["b"], full["kv"],
+                                 pa.sm_count(q.device))
+    model = pa.paged_decode_split_model(q, k, v, pages, lens,
+                                        pages_per_split=pps)
+    err_model = float((got - model).abs().max())
+    check(err_model <= tol_f32, f"paged_decode vs its split model "
+          f"({splits} splits): {err_model} > {tol_f32}")
     q, k, v, pages, lens = decode_case(8, dtype=torch.bfloat16, **full)
-    got = pa.paged_decode(q, k, v, pages, lens).float()
-    want = pa.paged_decode_plain(q, k, v, pages, lens).float()
-    # both accumulate in fp32; the last rounding to bf16 may fall either
-    # side of a tie, so one bf16 ulp of the value rides on the tolerance
-    tol_bf16 = 2e-3
-    excess = ((got - want).abs() - tol_bf16 - want.abs() * 2.0 ** -7)
-    err_bf16 = float((got - want).abs().max())
-    check(float(excess.max()) <= 0.0,
-          f"paged_decode full width bf16: max abs err {err_bf16} beyond "
-          f"{tol_bf16} + 1 ulp")
-    ms = cuda_ms(lambda: pa.paged_decode(q, k, v, pages, lens))
-    decode_kernel_ms = kernel_ms(lambda: pa.paged_decode(q, k, v, pages,
-                                                         lens),
-                                 "paged_decode_kernel")
-    plain_ms = cuda_ms(lambda: pa.paged_decode_plain(q, k, v, pages, lens))
-    nbytes, ops = decode_work(q, k, pages, lens)
-    bms, bby = bound_ms(nbytes, ops, "bfloat16")
-    # library yardstick, never called by the port: SDPA over the gathered,
-    # head-expanded view with the length mask (the gather is not timed)
-    b, kvh, g, hd = q.shape
-    idx = pages.long().clamp(0, num_pages - 1)
-    kb = k[idx].reshape(b, -1, kvh, hd)
-    vb = v[idx].reshape(b, -1, kvh, hd)
-    ke = kb.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
-    ve = vb.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
-    qh = q.reshape(b, kvh * g, 1, hd)
-    mask = (torch.arange(ke.shape[2], device="cuda")[None]
-            < lens.long()[:, None])[:, None, None, :]
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qh, ke, ve, attn_mask=mask))
-    res["paged_decode"] = {
-        "cases_f32": n_cases, "max_abs_err_f32": worst,
-        "max_abs_err_full_f32": err_full32, "max_abs_err": err_bf16,
-        "tol_f32": tol_f32, "tol_bf16": f"{tol_bf16} + 1 bf16 ulp",
-        "shape": {k_: v_ for k_, v_ in full.items()}, "dtype": "bfloat16",
-        "ms": ms, "kernel_ms": decode_kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": bms, "bound_by": bby,
-        "bytes": nbytes, "ops": ops, "library_ms": lib_ms,
-        "library": "F.scaled_dot_product_attention on the gathered view"}
+    got = pa.paged_decode(q, k, v, pages, lens)
+    ok, err_bf16 = within_bf16(got, pa.paged_decode_plain(
+        q, k, v, pages, lens), tol_bf16)
+    check(ok, f"paged_decode full width bf16: max abs err {err_bf16} "
+          f"beyond {tol_bf16} + 1 ulp")
+    check(bits_equal(got, pa.paged_decode(q, k, v, pages, lens)),
+          "paged_decode full width: two launches differ")
+    main = time_decode(q, k, v, pages, lens)
+    # ---- long context: 4 rows x 4096 live positions, 64 MB of K+V
+    ps, per_row, b = 16, 256, 4
+    q, k, v, _, _ = decode_case(9, b=b, kv=8, g=5, hd=128, ps=ps,
+                                num_pages=b * per_row, p_cap=1,
+                                dtype=torch.bfloat16)
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    pages = torch.randperm(b * per_row, generator=gen).to(
+        torch.int32).reshape(b, per_row).to("cuda")
+    lens = torch.full((b,), per_row * ps, dtype=torch.int32, device="cuda")
+    got = pa.paged_decode(q, k, v, pages, lens)
+    ok, err_long = within_bf16(got, pa.paged_decode_plain(
+        q, k, v, pages, lens), tol_bf16)
+    check(ok, f"paged_decode long context bf16: max abs err {err_long} "
+          f"beyond {tol_bf16} + 1 ulp")
+    check(bits_equal(got, pa.paged_decode(q, k, v, pages, lens)),
+          "paged_decode long context: two launches differ")
+    long_row = time_decode(q, k, v, pages, lens)
+    long_row.update(max_abs_err=err_long, shape={
+        "b": b, "kv": 8, "g": 5, "hd": 128, "ps": ps,
+        "num_pages": b * per_row, "p_cap": per_row, "len": per_row * ps})
+    return {"cases_f32": n_cases, "max_abs_err_f32": worst,
+            "max_abs_err_negative_entries": err_neg,
+            "max_abs_err_full_f32": err_full32,
+            "max_abs_err_split_model": err_model, "max_abs_err": err_bf16,
+            "tol_f32": tol_f32, "tol_bf16": f"{tol_bf16} + 1 bf16 ulp",
+            "bit_equal_launches": True,
+            "shape": dict(full), "dtype": "bfloat16", **main,
+            "library": "F.scaled_dot_product_attention on the gathered view",
+            "long_context": long_row}
+
+
+def phase_kernels(out):
+    import numpy as np
+    import torch
+    from repro_torch.kernels import semaphore as sem
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {}
+    res["paged_decode"] = check_paged_decode()
+    c = SERVE
 
     # ---- semaphore_admission: bit-identical on seeded traces
     rng = np.random.default_rng(0)
@@ -389,8 +493,11 @@ def plain_host_ms(fn, reps: int = 10) -> float:
 
 def bits_equal(a, b) -> bool:
     import numpy as np
-    a = a.detach().cpu().numpy()
-    b = b.detach().cpu().numpy()
+    import torch
+    a, b = a.detach().cpu(), b.detach().cpu()
+    if a.dtype == torch.bfloat16:       # numpy has no bf16: compare bits
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    a, b = a.numpy(), b.numpy()
     if a.dtype == np.float32:
         a, b = a.view(np.int32), b.view(np.int32)
     return a.shape == b.shape and bool(np.array_equal(a, b))
@@ -789,7 +896,7 @@ def phase_profile(out, warm_rounds: int = 4, rounds: int = 6):
     busy_ms = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
     decode_ms = sum(v for k, v in by_kernel.items()
-                    if "paged_decode_kernel" in k)
+                    if any(n in k for n in DECODE_KERNELS))
     return {"rounds": rounds, "decode_steps": window_steps,
             "prefill_chunks": window_chunks,
             "prefill_chunks_unprofiled": chunks_plain,

@@ -7,11 +7,17 @@ what bounds it on the H100 and how it is laid out.
 * :func:`paged_decode` — ``[B, KV, G, hd]`` queries against the paged
   arena ``[num_pages, ps, KV, hd]`` through a ``[B, P]`` block table.
   A CUDA tensor launches the kernel; a CPU tensor takes the plain
-  version. There is no fallback: a CUDA call that cannot launch raises.
+  version. There is no fallback: a CUDA call that cannot launch, or a
+  shape the kernel does not take, raises.
+* :func:`plan_splits` / :func:`split_ranges` — how the kernel cuts each
+  (row, kv head) over its table entries, chosen on the host from the
+  shapes and the SM count alone (never the lengths).
 * :func:`paged_decode_plain` — gather-then-attend in torch, in the
   kernel's grouping: sentinel *pages* are masked as the kernel masks
   them and rows with no live lane are exact zeros (the counterpart of
   ``ref.py::paged_decode_ref``).
+* :func:`paged_decode_split_model` — the kernel's split and
+  log-sum-exp merge in torch, which the tests hold to the JAX kernel.
 * :func:`paged_decode_fused` — the decode path's ``[B, 1, H, hd]`` ↔
   ``[B, KV, G, hd]`` adapter (counterpart of ``ops.py``). On one card
   the head plan is always "shard", so there are no padded heads.
@@ -32,10 +38,58 @@ NEG_INF = -2.0e38
 _P, _I = ctypes.c_void_p, ctypes.c_int
 PAGED_DECODE = CudaKernel(
     "paged_decode.cu", "paged_decode_launch",
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-     ctypes.c_float, _I, _P])
+    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+     _I, ctypes.c_float, _I, _P])
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 128)
+MAX_GROUPS = 8
+# CTAs per SM the split aims at (two fit at hd 128 in bf16: ~100 KB of
+# shared memory each), and the most splits one (row, kv head) may take.
+CTAS_PER_SM = 2
+MAX_SPLITS = 256
+
+
+def plan_splits(table_width: int, batch: int, kv_heads: int,
+                sm_count: int):
+    """``(splits, pages_per_split)`` for a ``[batch, table_width]`` block
+    table: as many splits of each (row, kv head) as fill CTAS_PER_SM
+    CTAs on every SM in one wave, never more than the table has entries.
+    It reads no length, so the host never waits on the card."""
+    if table_width <= 0:
+        return 1, 1
+    rows = max(1, batch * kv_heads)
+    splits = max(1, (CTAS_PER_SM * sm_count) // rows)
+    splits = min(splits, table_width, MAX_SPLITS)
+    pps = -(-table_width // splits)
+    return -(-table_width // pps), pps
+
+
+def split_ranges(table_width: int, pages_per_split: int):
+    """Table entries ``[j0, j1)`` of each split, in split order."""
+    return [(j0, min(j0 + pages_per_split, table_width))
+            for j0 in range(0, table_width, pages_per_split)]
+
+
+_SM_COUNT: dict = {}
+_COUNTERS: dict = {}
+
+
+def sm_count(device: torch.device) -> int:
+    if device.index not in _SM_COUNT:
+        _SM_COUNT[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SM_COUNT[device.index]
+
+
+def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The per-(row, kv head) arrival counters of one stream: zeroed once
+    when made (or grown); the kernel leaves them at zero."""
+    buf = _COUNTERS.get((device.index, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _COUNTERS[(device.index, stream)] = buf
+    return buf
 
 
 def _check(q, k_arena, v_arena, pages, cache_len):
@@ -61,7 +115,8 @@ def paged_decode(q: torch.Tensor, k_arena: torch.Tensor,
                  cache_len: torch.Tensor, *,
                  window: Optional[int] = None) -> torch.Tensor:
     """One-pass block-table decode attention. Returns ``[B, KV, G, hd]``
-    in ``q``'s dtype. ``pages`` entries ``>= num_pages`` are sentinels."""
+    in ``q``'s dtype. ``pages`` entries ``>= num_pages`` are sentinels;
+    a negative entry reads page 0."""
     _check(q, k_arena, v_arena, pages, cache_len)
     if q.device.type == "cpu":
         return paged_decode_plain(q, k_arena, v_arena, pages, cache_len,
@@ -80,15 +135,27 @@ def paged_decode(q: torch.Tensor, k_arena: torch.Tensor,
         if not t.is_contiguous():
             raise ValueError(f"paged_decode needs a contiguous {name}")
     b, kv, g, hd = q.shape
+    if hd not in HEAD_DIMS or g > MAX_GROUPS:
+        raise ValueError(f"the paged-decode kernel takes head_dim in "
+                         f"{HEAD_DIMS} and at most {MAX_GROUPS} query heads "
+                         f"per kv head; got hd={hd}, G={g}")
+    for name, t in (("q", q), ("k_arena", k_arena), ("v_arena", v_arena)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"paged_decode needs {name} 16-byte aligned")
     num_pages, ps = k_arena.shape[0], k_arena.shape[1]
+    p_cap = pages.shape[1]
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        splits, pps = plan_splits(p_cap, b, kv, sm_count(q.device))
+        ws = torch.empty(b * kv * splits * g * (2 + hd) if splits > 1 else 1,
+                         dtype=torch.float32, device=q.device)
+        counters = _counters(q.device, stream, b * kv)
         PAGED_DECODE.launch(
             q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(),
             pages.data_ptr(), cache_len.data_ptr(), out.data_ptr(),
-            b, kv, g, hd, num_pages, ps, pages.shape[1],
-            -1 if window is None else int(window),
+            ws.data_ptr(), counters.data_ptr(), b, kv, g, hd, num_pages, ps,
+            p_cap, pps, splits, -1 if window is None else int(window),
             1.0 / math.sqrt(hd), dtype, stream)
     return out
 
@@ -120,6 +187,50 @@ def paged_decode_plain(q: torch.Tensor, k_arena: torch.Tensor,
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bhgt,bthd->bhgd", p, vb) / l.clamp_min(1e-37)
     return out.to(q.dtype)
+
+
+def paged_decode_split_model(q: torch.Tensor, k_arena: torch.Tensor,
+                             v_arena: torch.Tensor, pages: torch.Tensor,
+                             cache_len: torch.Tensor, *,
+                             pages_per_split: int,
+                             window: Optional[int] = None) -> torch.Tensor:
+    """The CUDA kernel's decomposition written in torch, for the tests
+    and ``chip_smoke.py`` only: each split of ``pages_per_split`` table
+    entries gives an unnormalised partial ``(m, l, acc)`` (an empty split
+    has ``m = NEG_INF``, ``l = 0``), then the partials are merged by
+    log-sum-exp in split order, skipping empty ones. fp32 throughout."""
+    b, kv, g, hd = q.shape
+    num_pages, ps = k_arena.shape[0], k_arena.shape[1]
+    p_cap = pages.shape[1]
+    idx = pages.long().clamp(0, num_pages - 1)
+    kb = k_arena[idx].reshape(b, p_cap * ps, kv, hd).float()
+    vb = v_arena[idx].reshape(b, p_cap * ps, kv, hd).float()
+    pos = torch.arange(p_cap * ps, device=q.device)
+    cl = cache_len.long()[:, None]
+    valid = pos[None, :] < cl
+    if window is not None:
+        valid &= pos[None, :] >= cl - window
+    valid &= (pages < num_pages).repeat_interleave(ps, dim=1)
+    qs = q.float() * (1.0 / math.sqrt(hd))
+    parts = []
+    for j0, j1 in split_ranges(p_cap, pages_per_split):
+        sl = slice(j0 * ps, j1 * ps)
+        mask = valid[:, None, None, sl]
+        sc = torch.einsum("bhgd,bthd->bhgt", qs, kb[:, sl])
+        sc = torch.where(mask, sc, torch.full_like(sc, NEG_INF))
+        m = sc.amax(dim=-1)
+        p = torch.where(mask, torch.exp(sc - m[..., None]),
+                        torch.zeros_like(sc))
+        parts.append((m, p.sum(dim=-1),
+                      torch.einsum("bhgt,bthd->bhgd", p, vb[:, sl])))
+    m_all = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    l_tot = torch.zeros_like(m_all)
+    acc = torch.zeros(b, kv, g, hd, dtype=torch.float32, device=q.device)
+    for m, l, a in parts:
+        w = torch.where(l > 0, torch.exp(m - m_all), torch.zeros_like(m))
+        l_tot = l_tot + l * w
+        acc = acc + a * w[..., None]
+    return (acc / l_tot.clamp_min(1e-37)[..., None]).to(q.dtype)
 
 
 def paged_decode_fused(q: torch.Tensor, k_arena: torch.Tensor,

@@ -83,6 +83,21 @@ def test_plain_ragged_last_page(last):
     np.testing.assert_allclose(got, kern, atol=TOL, rtol=0)
 
 
+def test_plain_negative_entries_match_pallas():
+    """Only an entry >= num_pages is a sentinel: the TPU kernel clips a
+    negative entry to page 0 and reads it as live, and so must the plain
+    version (and the CUDA kernel, held to it in chip_smoke.py)."""
+    q, k, v, pages, lens = _case(13, b=3, kv=2, g=4, hd=16, ps=4,
+                                 num_pages=16, p_cap=5)
+    lens[0] = 20
+    pages[0] = [3, -1, 16, -5, 7]     # two negative entries, one sentinel
+    lens[2] = max(int(lens[2]), 5)
+    pages[2, :2] = [-2, 9]
+    kern, ref, got = _both((q, k, v, pages, lens))
+    np.testing.assert_allclose(got, kern, atol=TOL, rtol=0)
+    assert np.abs(got[0]).max() > 0
+
+
 def test_adapter_matches_reference_adapter():
     """[B,1,H,hd] in and out, kv-major grouping, against the reference's
     ``paged_decode_fused`` (interpret mode)."""

@@ -71,9 +71,9 @@ def main():
         tattn.paged_decode_attention(
             None, cfg, *[torch.tensor(a) for a in (q, k, v, pages, lens)],
             window=None, impl="gather"))
-    worst = 0.0
+    worst = worst_split = 0.0
     for ps in (1, 4, 16):
-        for kv, g in ((8, 1), (2, 4), (1, 8)):
+        for kv, g in ((8, 1), (2, 4), (1, 8), (8, 5)):
             arrays = pa_test._case(ps * 10 + kv, b=4, kv=kv, g=g, hd=16,
                                    ps=ps, num_pages=24, p_cap=5,
                                    dead_row=True)
@@ -81,7 +81,13 @@ def main():
                                       interpret=True)
             got = tpa.paged_decode(*[torch.tensor(a) for a in arrays])
             worst = max(worst, err(want, got))
+            for pps in (5, 3, 2, 1):          # 1, 2, 3 and 5 splits
+                got = tpa.paged_decode_split_model(
+                    *[torch.tensor(a) for a in arrays], pages_per_split=pps)
+                worst_split = max(worst_split, err(want, got))
     rows["paged_decode plain vs Pallas interpret (grid)"] = worst
+    rows["paged_decode split model vs Pallas interpret (grid, 1-5 "
+         "splits)"] = worst_split
 
     jm = jbuild(jget_arch("qwen3-14b").reduced())
     jp = jm.init(jax.random.PRNGKey(0))

@@ -16,9 +16,14 @@ JSON line with its seconds:
              with its time, the plain version's time, the bound and the
              library yardstick (paged decode also on negative table
              entries, against its split model, on a long-context row of
-             4 x 4096 positions, and two launches bit-equal; the ticket
-             lock and the barrier over many seeded traces at N 64 and
-             1024, every membench cell at 132 and 1056 steps)
+             4 x 4096 positions, and two launches bit-equal; the
+             admission kernel bit-identical over N x K grids of random
+             and tie-heavy traces; the ticket lock at N 1 to 4096 on
+             seeded permutations; the barrier over many
+             seeded traces at N 64 and 1024, every membench cell at 132
+             and 1056 steps); the two sequential kernels also print
+             their whole planning call, the launch floor and a
+             dependent-chain estimate beside the byte bound
   3 parity   reduced qwen3-14b served on cuda (kernels) and on cpu
              (plain versions) from the same weights and requests:
              greedy streams and grant logs identical
@@ -68,6 +73,16 @@ REDUCED = dict(capacity=3, requests=6, prompt_min=5, prompt_max=24,
                new_tokens=8, page_size=4, prefill_chunk=4, decode_chunk=2)
 # The paper's Section-3 cell size: 8 CTAs per SM of 132, 1000 accesses.
 MEMBENCH_CELL = dict(n_steps=1056, repeats=1000)
+
+# Cycles one step of each sequential kernel waits on, for the
+# dependent-chain estimates printed beside the byte bounds (assumed
+# latencies: 4 cycles per ALU op, ~20 per warp collective, ~30 per
+# shared-memory access): the admission kernel's redux minimum, the tied
+# lane's ballot and find-first, its insert and new key, per arrival; the
+# lock's turn store and the next holder's load, its chain load,
+# multiply, add and store, per requester.
+SEMAPHORE_STEP_CYCLES = 64
+LOCK_STEP_CYCLES = 130
 
 # every kernel of the paged-decode op (the profiler filters read it)
 DECODE_KERNELS = ("paged_decode_kernel",)
@@ -187,6 +202,31 @@ def ptxas_summary(text):
     return rows
 
 
+def ptxas_kernels(text):
+    """``{"<kernel><template args>": [registers, spill bytes, smem
+    bytes]}`` for every entry function of a source, from ``-Xptxas
+    -v``."""
+    import re
+    rows, name, spill = {}, None, 0
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            base = re.search(r"\d+([a-z]\w*?_kernel)", m.group(1))
+            args = re.findall(r"L[ib](\d+)E", m.group(1))
+            name = (base.group(1) if base else m.group(1)) + (
+                f"<{','.join(args)}>" if args else "")
+            spill = 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", ln)
+        if m and name:
+            rows[name] = [int(m.group(1)), spill, int(m.group(2) or 0)]
+    return rows
+
+
 # ------------------------------------------------------------ phase 1: card
 def phase_card(out):
     from repro_torch.kernels import build
@@ -197,17 +237,27 @@ def phase_card(out):
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else ""
     check(bool(card), f"nvidia-smi failed: {smi.stderr.strip()}")
     print(card, flush=True)
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    try:
+        max_mhz, now_mhz = (float(x) for x in
+                            clk.stdout.splitlines()[0].split(","))
+    except (IndexError, ValueError):
+        max_mhz = now_mhz = None
     t0 = time.perf_counter()
     libs = build.build(SOURCES)
     ptxas = {}
     for src, lib in libs.items():
         log = lib.with_name(lib.name + ".log")
         text = log.read_text() if log.is_file() else ""
-        ptxas[src] = ptxas_summary(text) if src == "paged_decode.cu" else [
-            ln.strip() for ln in text.splitlines()
-            if "registers" in ln or "spill" in ln][:6]
+        ptxas[src] = (ptxas_summary(text) if src == "paged_decode.cu"
+                      else ptxas_kernels(text))
     out["card"] = card
-    return {"card": card, "nvcc": build.nvcc(),
+    out["sm_clock_mhz"] = max_mhz
+    return {"card": card, "sm_clock_max_mhz": max_mhz,
+            "sm_clock_now_mhz": now_mhz, "nvcc": build.nvcc(),
             "build_s": time.perf_counter() - t0, "ptxas": ptxas}
 
 
@@ -411,68 +461,143 @@ def check_paged_decode():
             "long_context": long_row}
 
 
-def phase_kernels(out):
+def chain_ms(n_steps, cycles_per_step, clock_mhz):
+    """Dependent-chain estimate (not the roofline bound): ``n_steps``
+    steps of a recurrence, each waiting ``cycles_per_step`` cycles, at
+    the card's maximum SM clock."""
+    if not clock_mhz:
+        return None
+    return n_steps * cycles_per_step / (clock_mhz * 1e3)
+
+
+def admission_trace(rng, n, ties):
+    """Random sorted arrivals, or the engine's tie-heavy shape: in-flight
+    holds all arriving "now", the queue just after."""
+    import numpy as np
+    if ties:
+        arr = np.concatenate([np.zeros(n // 2), 1e-3 * (np.arange(
+            n - n // 2) + 1)]).astype(np.float32)
+        hold = rng.integers(1, 9, n).astype(np.float32)
+    else:
+        arr = np.cumsum(rng.exponential(1.0, n)).astype(np.float32)
+        hold = rng.uniform(0.5, 20.0, n).astype(np.float32)
+    return arr, hold
+
+
+def median_us(fn, reps: int = 200) -> float:
+    """Median host-clock time in µs of ``fn``, which synchronises itself,
+    over ``reps`` calls after ten warm ones."""
+    for _ in range(10):
+        fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def plan_anatomy(run_c, window, library, library_ref):
+    """Where a planning call's host time goes at N 12 on the 32-wide
+    window (median of 200, µs): the C plan entry with its packing, on
+    buffers of the script's own (copy in, launch, copy out, synchronise),
+    the window planner around it (padding,
+    packing, unpadding), the sync library's plan on ``cuda`` around that,
+    and the same library plan on ``ref`` (the plain version on the host,
+    the yardstick of this host's speed)."""
+    return {"c_plan": median_us(run_c), "window": median_us(window),
+            "library_cuda": median_us(library),
+            "library_ref": median_us(library_ref)}
+
+
+def check_semaphore(launch_floor_ms, clock_mhz):
+    """Bit-identical to the plain version on N {1, 64, 128, 1000} x K {1,
+    4, 8, 9, 32, 33, 64, 1024} over random and tie-heavy traces; timed at
+    the main path's shape (the engine's 64-wide planning window at
+    capacity 4), with the kernel alone at K 33 and 1024 beside it."""
     import numpy as np
     import torch
     from repro_torch.kernels import semaphore as sem
+    from repro_torch.kernels.build import PlanStaging
+    rng = np.random.default_rng(0)
+    n_checked = 0
+    for n in (1, 64, 128, 1000):
+        for cap in (1, 4, 8, 9, 32, 33, 64, 1024):
+            for ties in (False, True):
+                arr, hold = admission_trace(rng, n, ties)
+                a_t = torch.tensor(arr, device="cuda")
+                h_t = torch.tensor(hold, device="cuda")
+                got = sem.semaphore_admission(a_t, h_t, cap)
+                want = sem.semaphore_admission_plain(a_t.cpu(), h_t.cpu(),
+                                                     cap)
+                for x, y, name in zip(got, want, ("grant", "release",
+                                                  "waited")):
+                    check(bits_equal(x, y), f"semaphore_admission N={n} "
+                          f"K={cap} ties={ties}: {name} differs")
+                n_checked += 1
+    # main-path shape: the engine's planning window (64) at capacity 4
+    n, cap = 64, SERVE["capacity"]
+    arr, hold = admission_trace(rng, n, False)
+    a_t, h_t = (torch.tensor(x, device="cuda") for x in (arr, hold))
+    ms = cuda_ms(lambda: sem.semaphore_admission(a_t, h_t, cap), flush_mb=1)
+    name = "semaphore_admission_kernel"
+    k_ms = kernel_ms(lambda: sem.semaphore_admission(a_t, h_t, cap), name)
+    by_capacity = {k: kernel_ms(lambda: sem.semaphore_admission(
+        a_t, h_t, k), name) for k in (33, 1024)}
+    a_c, h_c = a_t.cpu(), h_t.cpu()
+    plain_ms = plain_host_ms(
+        lambda: sem.semaphore_admission_plain(a_c, h_c, cap))
+    window = sem.AdmissionWindow("cuda", base_window=64)
+    call_ms = host_ms(lambda: window(arr[:40], hold[:40], capacity=cap))
+    from repro_torch.sync import SyncLibrary
+    lib = SyncLibrary.host_default()
+    small = sem.AdmissionWindow("cuda")
+    a12, h12 = arr[:12], hold[:12]
+    stage = PlanStaging(torch.device("cuda"), 2 * 32, 3 * 32)
+    anatomy = plan_anatomy(
+        lambda: stage.run(sem.SEMAPHORE_ADMISSION, (arr[:32], hold[:32]),
+                          32, cap),
+        lambda: small(a12, h12, capacity=cap),
+        lambda: lib.plan_semaphore(a12, h12, cap, backend="cuda"),
+        lambda: lib.plan_semaphore(a12, h12, cap, backend="ref"))
+    nbytes = 5 * n * 4
+    ops = float(n * (cap + 2))
+    bms, bby = bound_ms(nbytes, ops, "float32")
+    return {
+        "traces": n_checked, "bit_identical": True, "max_abs_err": 0.0,
+        "shape": {"n": n, "capacity": cap}, "ms": ms, "kernel_ms": k_ms,
+        "kernel_ms_n64_by_capacity": by_capacity,
+        "plain_ms": plain_ms, "plain_on": "host (numpy loop)",
+        "call_ms": call_ms,
+        "call": "AdmissionWindow plan of 40 arrivals on the 64-wide "
+                "window, host clock",
+        "plan_anatomy_us_n12": anatomy,
+        "launch_floor_ms": launch_floor_ms,
+        "chain_estimate_ms": chain_ms(n, SEMAPHORE_STEP_CYCLES, clock_mhz),
+        "chain_estimate": f"{SEMAPHORE_STEP_CYCLES} cycles per arrival "
+                          "(a redux minimum, a ballot, the insert and the "
+                          "new key, at assumed latencies) at the max SM "
+                          "clock; an estimate, not the bound",
+        "bound_ms": bms, "bound_by": bby,
+        "bytes": nbytes, "ops": ops, "library_ms": None}
+
+
+def phase_kernels(out):
+    import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     res = {}
     res["paged_decode"] = check_paged_decode()
-    c = SERVE
 
-    # ---- semaphore_admission: bit-identical on seeded traces
-    rng = np.random.default_rng(0)
-    n_checked = 0
-    for n in (64, 128):
-        for cap in (1, 4, 8, 64):
-            arr = np.cumsum(rng.exponential(1.0, n)).astype(np.float32)
-            hold = rng.uniform(0.5, 20.0, n).astype(np.float32)
-            a_t = torch.tensor(arr, device="cuda")
-            h_t = torch.tensor(hold, device="cuda")
-            g1, r1, w1 = sem.semaphore_admission(a_t, h_t, cap)
-            g0, r0, w0 = sem.semaphore_admission_plain(a_t.cpu(), h_t.cpu(),
-                                                       cap)
-            for x, y, name in ((g1, g0, "grant"), (r1, r0, "release")):
-                check(np.array_equal(x.cpu().numpy().view(np.int32),
-                                     y.numpy().view(np.int32)),
-                      f"semaphore_admission N={n} K={cap}: {name} differs")
-            check(np.array_equal(w1.cpu().numpy(), w0.numpy()),
-                  f"semaphore_admission N={n} K={cap}: waited differs")
-            n_checked += 1
-    # main-path shape: the engine's planning window (64) at capacity 4
-    n, cap = 64, c["capacity"]
-    arr = np.cumsum(rng.exponential(1.0, n)).astype(np.float32)
-    hold = rng.uniform(0.5, 20.0, n).astype(np.float32)
-    a_t, h_t = torch.tensor(arr, device="cuda"), torch.tensor(hold,
-                                                             device="cuda")
-    ms = cuda_ms(lambda: sem.semaphore_admission(a_t, h_t, cap), flush_mb=1)
-    sem_kernel_ms = kernel_ms(lambda: sem.semaphore_admission(a_t, h_t, cap),
-                              "semaphore_admission_kernel")
-    a_c, h_c = a_t.cpu(), h_t.cpu()
-    t0 = time.perf_counter()
-    for _ in range(20):
-        sem.semaphore_admission_plain(a_c, h_c, cap)
-    plain_ms = (time.perf_counter() - t0) * 1e3 / 20
-    window = sem.AdmissionWindow("cuda", base_window=64)
-    call_ms = host_ms(lambda: window(arr[:40], hold[:40], capacity=cap))
     # the floor a one-warp sequential kernel really meets: one launch of
     # a one-element kernel on the same stream
     one = torch.zeros(1, device="cuda")
     launch_floor_ms = cuda_ms(lambda: one.add_(1.0), flush_mb=1)
-    nbytes = 5 * n * 4
-    ops = float(n * (cap + 2))
-    bms, bby = bound_ms(nbytes, ops, "float32")
-    res["semaphore_admission"] = {
-        "traces": n_checked, "bit_identical": True, "max_abs_err": 0.0,
-        "shape": {"n": n, "capacity": cap}, "ms": ms,
-        "kernel_ms": sem_kernel_ms,
-        "plain_ms": plain_ms, "plain_on": "host (numpy loop)",
-        "call_ms": call_ms, "launch_floor_ms": launch_floor_ms,
-        "bound_ms": bms, "bound_by": bby,
-        "bytes": nbytes, "ops": ops, "library_ms": None}
-    res["ticket_lock"] = check_ticket_lock(launch_floor_ms)
+    clock_mhz = out.get("sm_clock_mhz")
+    res["semaphore_admission"] = check_semaphore(launch_floor_ms, clock_mhz)
+    res["ticket_lock"] = check_ticket_lock(launch_floor_ms, clock_mhz)
     res["xf_barrier"] = check_xf_barrier(launch_floor_ms)
     res["membench"] = check_membench(launch_floor_ms)
     out["kernels"] = res
@@ -503,30 +628,39 @@ def bits_equal(a, b) -> bool:
     return a.shape == b.shape and bool(np.array_equal(a, b))
 
 
-def check_ticket_lock(launch_floor_ms):
-    """Grant order and turn trace exact, the chain bit-equal, over seeded
-    permutations at N 64 (the kernel benchmark's shape, timed) and 1024
-    (one requester per CTA, 7.8 per SM)."""
+def check_ticket_lock(launch_floor_ms, clock_mhz):
+    """Grant order and turn trace exact, the chain bit-equal, error word
+    never set, over four seeded permutations at each N {1, 33, 64, 1024,
+    4096} (4096: each of the CTA's 32 requester warps serves 128
+    requesters). Timed at N 64 (the kernel benchmark's shape) and
+    1024."""
     import numpy as np
     import torch
     from repro_torch.kernels import ticket_lock as tl
+    from repro_torch.kernels.build import PlanStaging
     rng = np.random.default_rng(3)
     n_checked = 0
     timing = {}
-    for n in (64, 1024):
+
+    def inputs(n):
+        return (torch.tensor(rng.permutation(n), dtype=torch.int32,
+                             device="cuda"),
+                torch.tensor(rng.uniform(0.5, 1.5, n), dtype=torch.float32,
+                             device="cuda"),
+                torch.tensor(rng.standard_normal(n), dtype=torch.float32,
+                             device="cuda"))
+
+    for n in (1, 33, 64, 1024, 4096):
         for _ in range(4):
-            arr = torch.tensor(rng.permutation(n), dtype=torch.int32,
-                               device="cuda")
-            m = torch.tensor(rng.uniform(0.5, 1.5, n), dtype=torch.float32,
-                             device="cuda")
-            b = torch.tensor(rng.standard_normal(n), dtype=torch.float32,
-                             device="cuda")
+            arr, m, b = inputs(n)
             got = tl.ticket_lock(arr, m, b)
             want = tl.ticket_lock_plain(arr.cpu(), m.cpu(), b.cpu())
             for g, w, name in zip(got, want, ("grant", "trace", "acc")):
-                check(bits_equal(g, w), f"ticket_lock N={n}: {name} differs "
-                      f"from the plain version")
+                check(bits_equal(g, w), f"ticket_lock N={n}: {name} "
+                      f"differs from the plain version")
             n_checked += 1
+    for n in (64, 1024):
+        arr, m, b = inputs(n)
         a_c, m_c, b_c = arr.cpu(), m.cpu(), b.cpu()
         timing[n] = {
             "ms": cuda_ms(lambda: tl.ticket_lock(arr, m, b, check=False),
@@ -534,17 +668,41 @@ def check_ticket_lock(launch_floor_ms):
             "kernel_ms": kernel_ms(lambda: tl.ticket_lock(
                 arr, m, b, check=False), "ticket_lock_kernel"),
             "plain_ms": plain_host_ms(
-                lambda: tl.ticket_lock_plain(a_c, m_c, b_c))}
+                lambda: tl.ticket_lock_plain(a_c, m_c, b_c)),
+            "chain_estimate_ms": chain_ms(n, LOCK_STEP_CYCLES, clock_mhz)}
         tl.TICKET_LOCK.check_pending()
+    window_call_ms = host_ms(lambda: tl.ticket_lock_window(
+        np.arange(12, dtype=np.int32), device="cuda"))
+    from repro_torch.sync import SyncLibrary
+    lib = SyncLibrary.host_default()
+    perm12 = rng.permutation(12).astype(np.int32)
+    stage = PlanStaging(torch.device("cuda"), 3 * 32, 2 * 32 + 2)
+    perm32 = rng.permutation(32).astype(np.int32)
+    ones, zeros = np.ones(32, np.float32), np.zeros(32, np.float32)
+    anatomy = plan_anatomy(
+        lambda: stage.run(tl.TICKET_LOCK, (perm32, ones, zeros), 32),
+        lambda: tl.ticket_lock_window(perm12, device="cuda"),
+        lambda: lib.plan_mutex(perm12, backend="cuda"),
+        lambda: lib.plan_mutex(perm12, backend="ref"))
     n = 64
     nbytes = 5 * n * 4 + 4        # arrival, m, b in; grant, trace, acc out
     ops = 2.0 * n                 # one multiply and one add per requester
     bms, bby = bound_ms(nbytes, ops, "float32")
     return {"traces": n_checked, "bit_identical": True, "max_abs_err": 0.0,
-            "shape": {"n": n}, "ms": timing[n]["ms"],
-            "kernel_ms": timing[n]["kernel_ms"],
+            "shape": {"n": n},
+            "ms": timing[n]["ms"], "kernel_ms": timing[n]["kernel_ms"],
             "plain_ms": timing[n]["plain_ms"], "plain_on": "host (numpy loop)",
-            "n1024": timing[1024], "launch_floor_ms": launch_floor_ms,
+            "call_ms": window_call_ms,
+            "call": "ticket_lock_window of 12 requesters on the 32-wide "
+                    "window, host clock",
+            "plan_anatomy_us_n12": anatomy,
+            "n1024": timing[1024],
+            "launch_floor_ms": launch_floor_ms,
+            "chain_estimate_ms": timing[n]["chain_estimate_ms"],
+            "chain_estimate": f"{LOCK_STEP_CYCLES} cycles per requester (a "
+                              "turn hand-off through shared memory and the "
+                              "critical section) at the max SM clock; an "
+                              "estimate, not the bound",
             "bound_ms": bms, "bound_by": bby, "bytes": nbytes, "ops": ops,
             "library_ms": None,
             "library": "none: no PyTorch call computes a lock timeline"}
@@ -1063,7 +1221,9 @@ def kernels_line(out):
                      "kernel_ms": k["kernel_ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"],
-                     "library_ms": k["library_ms"], "shape": k["shape"]})
+                     "library_ms": k["library_ms"], "shape": k["shape"],
+                     **{key: k[key] for key in ("call_ms", "launch_floor_ms")
+                        if key in k}})
     return {"kernels": rows, "launches": out.get("launches", {}),
             "launches_primitives": out.get("launches_primitives", {}),
             "card": out.get("card")}

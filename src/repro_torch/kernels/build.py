@@ -20,8 +20,12 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -86,6 +90,11 @@ class CudaKernel:
     touched nowhere else: a run can show that its main path went through
     the kernel by zeroing it first and reading it after.
 
+    A library may also export ``<name>_plan`` (``plan_argtypes``): one
+    whole planning call on a stream — packed inputs copied in from
+    pinned host memory, one launch, packed outputs copied back, one
+    synchronise. :meth:`plan` calls it and counts its launch.
+
     Kernels that wait on each other (the lock, the barrier's hand-offs)
     carry a poll budget and report its expiry in an error word on the
     device. :meth:`check_word` reads it after a launch and raises;
@@ -93,35 +102,53 @@ class CudaKernel:
     passes ``check=False`` and calls :meth:`check_pending` after it.
     """
 
-    def __init__(self, source: str, symbol: str, argtypes: Sequence):
+    def __init__(self, source: str, symbol: str, argtypes: Sequence,
+                 plan_argtypes: Optional[Sequence] = None):
         self.source = source
         self.symbol = symbol
         self.argtypes = list(argtypes)
+        self.plan_argtypes = plan_argtypes
         self.launches = 0
         self._lib: Optional[ctypes.CDLL] = None
         self._fn = None
+        self._plan = None
         self._pending: list = []
+
+    def _entry(self, lib, suffix: str, argtypes, restype=ctypes.c_int):
+        fn = getattr(lib, self.symbol.replace("_launch", suffix))
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
+        return fn
 
     def load(self):
         if self._fn is None:
             lib = ctypes.CDLL(str(build([self.source])[self.source]))
-            fn = getattr(lib, self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            err = getattr(lib, self.symbol.replace("_launch", "_error_string"))
-            err.argtypes = [ctypes.c_int]
-            err.restype = ctypes.c_char_p
-            self._lib, self._fn, self._err = lib, fn, err
+            self._err = self._entry(lib, "_error_string", [ctypes.c_int],
+                                    ctypes.c_char_p)
+            if self.plan_argtypes is not None:
+                self._plan = self._entry(lib, "_plan", self.plan_argtypes)
+            self._lib = lib
+            self._fn = self._entry(lib, "_launch", self.argtypes)
         return self._fn
+
+    def _call(self, fn, name: str, args) -> None:
+        code = fn(*args)
+        if code != 0:
+            raise RuntimeError(
+                f"{name}: CUDA error {code} "
+                f"({self._err(code).decode(errors='replace')})")
+        self.launches += 1
 
     def launch(self, *args) -> None:
         """Call the C entry point; raise if it reports a CUDA error."""
-        code = self.load()(*args)
-        if code != 0:
-            raise RuntimeError(
-                f"{self.symbol}: CUDA error {code} "
-                f"({self._err(code).decode(errors='replace')})")
-        self.launches += 1
+        self._call(self.load(), self.symbol, args)
+
+    def plan(self, *args) -> None:
+        """Call the ``<name>_plan`` entry (see the class docstring);
+        raise if it reports a CUDA error."""
+        self.load()
+        self._call(self._plan, self.symbol.replace("_launch", "_plan"),
+                   args)
 
     def check_word(self, word, what: str, check: bool = True) -> None:
         """Raise if the device error word ``word`` (a one-element tensor)
@@ -137,3 +164,40 @@ class CudaKernel:
         for word, what in pending:
             if int(word.item()) != 0:
                 raise RuntimeError(f"{self.symbol}: {what}")
+
+
+class PlanStaging:
+    """The reused buffers of one planning window on one CUDA device, for
+    a kernel's ``<name>_plan`` entry: packed int32 inputs in pinned host
+    memory and on the card, packed int32 outputs on the card and in
+    pinned host memory. Float values go in and out as their bits."""
+
+    def __init__(self, device, n_in: int, n_out: int):
+        self.index = (device.index if device.index is not None
+                      else torch.cuda.current_device())
+        dev, i32 = torch.device("cuda", self.index), torch.int32
+        self._tensors = (torch.empty(n_in, dtype=i32, pin_memory=True),
+                         torch.empty(n_in, dtype=i32, device=dev),
+                         torch.empty(n_out, dtype=i32, device=dev),
+                         torch.empty(n_out, dtype=i32, pin_memory=True))
+        self._host_in = self._tensors[0].numpy()
+        self._host_out = self._tensors[3].numpy()
+        self._ptrs = [t.data_ptr() for t in self._tensors]
+        self._lock = threading.Lock()
+
+    def run(self, kernel: CudaKernel, parts, *scalars):
+        """One whole plan through ``kernel.plan`` on the device's current
+        stream: ``parts`` (int32 or float32 arrays) packed end to end
+        into the pinned input, copy in, launch, copy out, synchronise.
+        Returns a copy of the packed int32 output. The buffers are held
+        for the whole call, so several threads may plan at once."""
+        with self._lock:
+            at = 0
+            for part in parts:
+                part = np.asarray(part)
+                self._host_in[at:at + part.shape[0]] = part.view(np.int32)
+                at += part.shape[0]
+            with torch.cuda.device(self.index):
+                kernel.plan(*self._ptrs, *scalars,
+                            torch.cuda.current_stream(self.index).cuda_stream)
+            return self._host_out.copy()

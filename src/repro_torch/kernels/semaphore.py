@@ -1,5 +1,6 @@
 """Algorithm-5 semaphore admission timeline: CUDA kernel, plain version,
-and the fixed-window planner the serving engine calls every round.
+a CPU model of the kernel's algorithm, and the fixed-window planner the
+serving engine calls every round.
 
 Counterpart of ``repro.kernels.semaphore`` (kernel.py, ref.py and
 ops.py there). The kernel is ``csrc/semaphore_admission.cu``; its header
@@ -13,11 +14,14 @@ and K slots (the paper's sleeping semaphore is a K-server FIFO queue):
   tensors take the plain version. Both use only max, min and one float32
   add, so their outputs are bit-identical to each other and to the TPU
   kernel's.
+* :func:`semaphore_admission_model` — the kernel's order-free update in
+  numpy, with its register layout (lanes of slots, integer keys and the
+  first tied lane), for the CPU tests.
 * :class:`AdmissionWindow` — numpy in/out, padded to a fixed
   power-of-2 window with far-future zero-hold arrivals (``_pad_admission``)
-  so every planning launch has one shape; on a CUDA device the plan ends
-  in a device-to-host copy, because the engine reads ``waited`` on the
-  host.
+  so every planning launch has one shape. On a CUDA device a plan is one
+  packed copy to the card from a reused pinned buffer, one launch and
+  one packed copy back, because the engine reads ``waited`` on the host.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ import torch
 
 from repro_torch.sync.window import WindowedPlanner
 
-from .build import CudaKernel
+from .build import CudaKernel, PlanStaging
 
 MAX_CAPACITY = 1024
 _BIG = np.float32(3.4e38)
@@ -38,7 +42,7 @@ _BIG = np.float32(3.4e38)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SEMAPHORE_ADMISSION = CudaKernel(
     "semaphore_admission.cu", "semaphore_admission_launch",
-    [_P, _P, _P, _P, _P, _I, _I, _P])
+    [_P, _P, _P, _P, _P, _I, _I, _P], plan_argtypes=[_P] * 4 + [_I, _I, _P])
 
 Plan = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -98,6 +102,56 @@ def semaphore_admission_plain(arrive_t: torch.Tensor, hold: torch.Tensor,
             torch.from_numpy(waited).to(dev))
 
 
+def _key(x: np.ndarray) -> np.ndarray:
+    """The kernel's order-preserving uint32 key of float32 values."""
+    u = np.asarray(x, np.float32).view(np.uint32)
+    return np.where(u & np.uint32(0x80000000), ~u, u | np.uint32(0x80000000))
+
+
+def _replace_min(s: np.ndarray, r: np.float32) -> np.ndarray:
+    """The kernel's insertion network: ``s`` sorted ascending, drop s[0],
+    insert ``r``, stay sorted (only min and max of the same values)."""
+    if s.shape[0] == 1:
+        return np.array([r], np.float32)
+    return np.concatenate([[np.minimum(s[1], r)],
+                           np.minimum(s[2:], np.maximum(s[1:-1], r)),
+                           [np.maximum(s[-1], r)]]).astype(np.float32)
+
+
+def semaphore_admission_model(arrive_t, hold, capacity: int):
+    """The CUDA kernel's algorithm in numpy: ``(grant, release, waited)``.
+
+    Lane l of 32 holds slots l, l+32, ... sorted (a power-of-2 row, +inf
+    padded); the warp minimum is the least order-preserving key of the
+    lanes' first entries, decoded back to the exact value, and the first
+    lane whose key ties takes release_i.
+    Which slot is replaced differs from the reference's lowest index;
+    the multiset of slot times, and so every output, does not."""
+    arr = np.asarray(arrive_t, np.float32)
+    hld = np.asarray(hold, np.float32)
+    if not 1 <= capacity <= MAX_CAPACITY:
+        raise ValueError(f"capacity {capacity} outside [1, {MAX_CAPACITY}]")
+    width = 1
+    while 32 * width < capacity:
+        width *= 2
+    slot = np.arange(32)[:, None] + 32 * np.arange(width)[None]
+    rows = np.where(slot < capacity, -_BIG, np.float32(np.inf)).astype(
+        np.float32)                     # (lanes, slots per lane)
+    n = arr.shape[0]
+    grant = np.empty(n, np.float32)
+    release = np.empty(n, np.float32)
+    waited = np.empty(n, np.int32)
+    for i in range(n):
+        keys = _key(rows[:, 0])
+        lane = int(np.argmin(keys))     # first lane holding the minimum
+        free_t = rows[lane, 0]
+        grant[i] = np.maximum(arr[i], free_t)
+        release[i] = grant[i] + hld[i]  # float32 + float32
+        waited[i] = int(free_t > arr[i])
+        rows[lane] = _replace_min(rows[lane], release[i])
+    return grant, release, waited
+
+
 def _pad_admission(arrays, n: int, window: int):
     """Pad with far-future zero-hold arrivals: they keep the arrival sort
     ascending and can never steal a slot from a real request before it
@@ -110,20 +164,42 @@ def _pad_admission(arrays, n: int, window: int):
 
 
 class AdmissionWindow:
-    """The windowed planner bound to one device: numpy in, numpy out."""
+    """The windowed planner bound to one device: numpy in, numpy out.
+
+    On a CUDA device each window size keeps a pinned host buffer and a
+    device buffer for the packed inputs (arrive | hold) and for the
+    packed outputs (grant bits | release bits | waited), so a plan is
+    one call into the kernel's library: one asynchronous copy in, one
+    launch, one copy out and one stream synchronise. Several threads may
+    plan through one window at once (``PlanStaging.run``)."""
 
     def __init__(self, device, base_window: int = 32):
         self.device = torch.device(device)
         self.planner = WindowedPlanner(
             plan=self._plan, pad=_pad_admission, base_window=base_window,
             name="semaphore_admission_window")
+        self._buffers = {}
 
     def _plan(self, arrive_t, hold, *, capacity):
-        a = torch.from_numpy(np.ascontiguousarray(arrive_t, np.float32))
-        h = torch.from_numpy(np.ascontiguousarray(hold, np.float32))
-        g, r, w = semaphore_admission(a.to(self.device), h.to(self.device),
-                                      capacity)
-        return g.cpu().numpy(), r.cpu().numpy(), w.cpu().numpy()
+        if self.device.type != "cuda":
+            g, r, w = semaphore_admission(
+                torch.from_numpy(np.ascontiguousarray(arrive_t, np.float32)),
+                torch.from_numpy(np.ascontiguousarray(hold, np.float32)),
+                capacity)
+            return g.numpy(), r.numpy(), w.numpy()
+        if not 1 <= capacity <= MAX_CAPACITY:
+            raise ValueError(f"capacity {capacity} outside "
+                             f"[1, {MAX_CAPACITY}]")
+        n = arrive_t.shape[0]
+        stage = self._buffers.get(n)
+        if stage is None:
+            stage = self._buffers.setdefault(
+                n, PlanStaging(self.device, 2 * n, 3 * n))
+        out = stage.run(SEMAPHORE_ADMISSION,
+                        (np.asarray(arrive_t, np.float32),
+                         np.asarray(hold, np.float32)), n, capacity)
+        return (out[:n].view(np.float32), out[n:2 * n].view(np.float32),
+                out[2 * n:])
 
     def __call__(self, arrive_t, hold, *, capacity: int, window: int = None):
         return self.planner(np.asarray(arrive_t, np.float32),

@@ -7,15 +7,19 @@ what bounds it on the H100. N requesters take tickets in ``arrival``
 order, each waits for its turn, runs the order-sensitive critical
 section ``acc = acc * m + b`` and unlocks:
 
-* :func:`ticket_lock` — CUDA tensors launch the kernel (one CTA per
-  requester, all contending through device memory); CPU tensors take
-  the plain version. Returns ``(grant_order, turn_trace, acc)``; the
-  chain is folded with separate float32 multiply and add in both, so
-  they are bit-equal.
+* :func:`ticket_lock` — CUDA tensors launch the kernel (the requesters
+  are threads of one CTA, contending through its shared memory); CPU
+  tensors take the plain version. Returns ``(grant_order, turn_trace,
+  acc)``; the chain is folded with separate float32 multiply and add in
+  both, so they are bit-equal.
+* :func:`ticket_lock_schedule_model` — the kernel's schedule (slots that
+  own every P-th requester) stepped in pure Python, for the CPU tests.
 * :func:`ticket_lock_window` / :func:`ticket_lock_batch_window` — numpy
   in/out, padded to power-of-2 windows with identity requesters
   (``_pad_ticket``), on the device the caller names (``cuda`` by
-  default).
+  default). On a CUDA device a plan is one packed copy to the card from
+  a reused pinned buffer, one launch, one packed copy back and one
+  stream synchronise; the error word is read from the host copy.
 * :func:`ticket_lock_bounded_oracle` — the numpy step-exact oracle of
   the bounded-wait mutex, a copy of the reference's.
 """
@@ -31,14 +35,23 @@ import torch
 from repro_torch.core.device import resolve_device
 from repro_torch.sync.window import WindowedPlanner
 
-from .build import CudaKernel
+from .build import CudaKernel, PlanStaging
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 TICKET_LOCK = CudaKernel(
     "ticket_lock.cu", "ticket_lock_launch",
-    [_P, _P, _P, _P, _P, _P, _P, _I, _P])
+    [_P, _P, _P, _P, _I, _P], plan_argtypes=[_P] * 4 + [_I, _P])
+
+MAX_N = 16384          # grant and trace are staged in shared memory
+_EXPIRED = "a requester exhausted its 1,000,000-poll budget"
 
 Result = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _check_size(n: int) -> None:
+    if n > MAX_N:
+        raise ValueError(f"ticket_lock takes at most {MAX_N} requesters "
+                         f"on the card; got {n}")
 
 
 def ticket_lock(arrival: torch.Tensor, m: torch.Tensor, b: torch.Tensor,
@@ -47,8 +60,10 @@ def ticket_lock(arrival: torch.Tensor, m: torch.Tensor, b: torch.Tensor,
     ids in processing order and ``(N,)`` float32 ``m``, ``b`` (positional:
     entry t belongs to the t-th ticket). ``acc`` is a 0-d float32 tensor.
 
-    On a CUDA tensor an exhausted poll budget raises; ``check=False``
-    defers that read to ``TICKET_LOCK.check_pending()`` (timing loops)."""
+    On a CUDA tensor the three results are views of one int32 output
+    that the kernel fills whole; an exhausted poll budget raises, and
+    ``check=False`` defers that read to ``TICKET_LOCK.check_pending()``
+    (timing loops)."""
     if arrival.dim() != 1 or m.shape != arrival.shape \
             or b.shape != arrival.shape:
         raise ValueError(f"expected (N,) arrival, m, b; got "
@@ -68,19 +83,16 @@ def ticket_lock(arrival: torch.Tensor, m: torch.Tensor, b: torch.Tensor,
             and b.is_contiguous()):
         raise ValueError("ticket_lock needs contiguous inputs")
     n = arrival.shape[0]
+    _check_size(n)
     dev = arrival.device
-    grant = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    trace = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    acc = torch.zeros((), dtype=torch.float32, device=dev)
-    state = torch.zeros(4, dtype=torch.int32, device=dev)
+    out = torch.empty(2 * n + 2, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        TICKET_LOCK.launch(arrival.data_ptr(), m.data_ptr(), b.data_ptr(),
-                           grant.data_ptr(), trace.data_ptr(),
-                           acc.data_ptr(), state.data_ptr(), n, stream)
-    TICKET_LOCK.check_word(state[3], "a requester exhausted its "
-                           "1,000,000-poll budget", check)
-    return grant, trace, acc
+        TICKET_LOCK.launch(
+            arrival.data_ptr(), m.data_ptr(), b.data_ptr(), out.data_ptr(),
+            n, torch.cuda.current_stream(dev).cuda_stream)
+    TICKET_LOCK.check_word(out[2 * n + 1:], _EXPIRED, check)
+    return (out[:n], out[n:2 * n],
+            out[2 * n:2 * n + 1].view(torch.float32).reshape(()))
 
 
 def ticket_lock_plain(arrival: torch.Tensor, m: torch.Tensor,
@@ -101,6 +113,66 @@ def ticket_lock_plain(arrival: torch.Tensor, m: torch.Tensor,
             torch.tensor(acc, dtype=torch.float32, device=dev))
 
 
+def ticket_lock_schedule_model(arrival, m, b, slots: int, *, seed: int = 0):
+    """The CUDA kernel's schedule stepped in pure Python:
+    ``(grant_order, turn_trace, acc)`` as lists and a float32.
+
+    ``slots`` requester slots (threads of the kernel's CTA) each own
+    requesters s, s + slots, s + 2 slots, ... and serve them in order:
+    wait for the gate to reach j, take a ticket, bump the gate, wait for
+    the turn to reach the ticket, run the critical section, bump the
+    turn. Each step advances one slot whose wait is over, picked by a
+    seeded generator, so many interleavings are tried. Asserts that no
+    slot waits on a word that only it could move (the schedule cannot
+    deadlock for any ``slots`` >= 1) and that tickets follow the arrival
+    order."""
+    arr = [int(x) for x in np.asarray(arrival, np.int32)]
+    mm = np.asarray(m, np.float32)
+    bb = np.asarray(b, np.float32)
+    n = len(arr)
+    if slots < 1:
+        raise ValueError("slots must be >= 1")
+    rng = np.random.default_rng(seed)
+    gate = ticket = turn = 0
+    acc = np.float32(0.0)
+    grant, trace = [-1] * n, [-1] * n
+    ticket_of, holder = [-1] * n, {}
+    cur = list(range(min(slots, n)))      # each slot's current requester
+    at_gate = [True] * len(cur)
+    active = list(range(len(cur)))
+    while active:
+        ready = []
+        for s in active:
+            j = cur[s]
+            want = j if at_gate[s] else ticket_of[j]
+            if (gate if at_gate[s] else turn) == want:
+                ready.append(s)
+                continue
+            # the word moves to ``want`` when requester ``mover`` passes it
+            # on; that must be another slot's requester
+            mover = j - 1 if at_gate[s] else holder[want - 1]
+            assert mover % slots != s, (
+                f"slot {s} waits on requester {mover}, which it owns")
+        assert ready, "no slot can move: the schedule deadlocked"
+        s = ready[int(rng.integers(len(ready)))]
+        j = cur[s]
+        if at_gate[s]:
+            my, ticket, gate = ticket, ticket + 1, j + 1
+            assert my == j, f"requester {j} took ticket {my}"
+            ticket_of[j], holder[my] = my, j
+            at_gate[s] = False
+            continue
+        my = ticket_of[j]
+        grant[my], trace[my] = arr[j], turn
+        acc = np.float32(np.float32(acc * mm[my]) + bb[my])
+        turn = my + 1
+        if j + slots < n:
+            cur[s], at_gate[s] = j + slots, True
+        else:
+            active.remove(s)
+    return grant, trace, acc
+
+
 def _pad_ticket(arrays, n: int, window: int):
     """Pad with identity requesters arriving last: ids n..window-1 take
     the trailing tickets (real grants stay in the first n positions) and
@@ -112,12 +184,33 @@ def _pad_ticket(arrays, n: int, window: int):
             np.concatenate([b, np.zeros(pad, np.float32)]))
 
 
+_staging = {}
+
+
 def _plan(arrival, m, b, *, device):
-    def put(a, dtype):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
-    g, t, acc = ticket_lock(put(arrival, np.int32), put(m, np.float32),
-                            put(b, np.float32))
-    return g.cpu().numpy(), t.cpu().numpy(), acc.cpu().numpy()
+    """One padded window on ``device``. On a CUDA device one call into
+    the kernel's library copies ``arrival | m bits | b bits`` over from
+    the window's pinned buffer, launches, copies ``grant | trace | acc
+    bits | error`` back into pinned memory and synchronises the stream
+    (``PlanStaging.run``, safe to call from several threads)."""
+    if device.type != "cuda":
+        g, t, acc = ticket_lock(
+            *(torch.from_numpy(np.ascontiguousarray(a, dt))
+              for a, dt in ((arrival, np.int32), (m, np.float32),
+                            (b, np.float32))))
+        return g.numpy(), t.numpy(), acc.numpy()
+    n = arrival.shape[0]
+    _check_size(n)
+    stage = _staging.get((device, n))
+    if stage is None:
+        stage = _staging.setdefault((device, n),
+                                    PlanStaging(device, 3 * n, 2 * n + 2))
+    out = stage.run(TICKET_LOCK, (np.asarray(arrival, np.int32),
+                                  np.asarray(m, np.float32),
+                                  np.asarray(b, np.float32)), n)
+    if out[2 * n + 1] != 0:
+        raise RuntimeError(f"{TICKET_LOCK.symbol}: {_EXPIRED}")
+    return out[:n], out[n:2 * n], out[2 * n:2 * n + 1].view(np.float32)[0]
 
 
 _ticket_window = WindowedPlanner(

@@ -136,3 +136,51 @@ def test_cuda_kernel_bit_equal_to_plain(cuda_device, capacity):
     assert tsem.SEMAPHORE_ADMISSION.launches == before + 1
     for w, g in zip(want, got):
         _bits_equal(w.numpy(), g.cpu().numpy())
+
+
+@pytest.mark.parametrize("capacity", [8, 9, 32, 33, 1024])
+@pytest.mark.parametrize("ties", [False, True])
+def test_cuda_kernel_bit_equal_at_layout_boundaries(cuda_device, capacity,
+                                                    ties):
+    """One, two and 32 slots per lane (K 32, 33, 1024), below and above
+    the serving engine's K 4, on random and tie-heavy traces, K > N
+    included."""
+    for n in (1, 64, 1000):
+        arr, hold = _trace(capacity + n, n, ties)
+        got = tsem.semaphore_admission(
+            torch.from_numpy(arr).to(cuda_device),
+            torch.from_numpy(hold).to(cuda_device), capacity)
+        want = tsem.semaphore_admission_plain(torch.from_numpy(arr),
+                                              torch.from_numpy(hold),
+                                              capacity)
+        for w, g in zip(want, got):
+            _bits_equal(w.numpy(), g.cpu().numpy())
+
+
+def test_cuda_window_plan_is_one_launch(cuda_device):
+    win = tsem.AdmissionWindow(cuda_device, base_window=64)
+    arr, hold = _trace(2, 40, ties=True)
+    want = tsem.AdmissionWindow("cpu", base_window=64)(arr, hold,
+                                                       capacity=4)
+    for _ in range(3):
+        before = tsem.SEMAPHORE_ADMISSION.launches
+        got = win(arr, hold, capacity=4)
+        assert tsem.SEMAPHORE_ADMISSION.launches == before + 1
+        for w, g in zip(want, got):
+            _bits_equal(w, g)
+
+
+def test_cuda_window_plans_from_several_threads(cuda_device):
+    """One window's pinned buffers shared by eight threads planning at
+    once: each plan gets its own inputs' result."""
+    from concurrent.futures import ThreadPoolExecutor
+    win = tsem.AdmissionWindow(cuda_device, base_window=64)
+    cpu = tsem.AdmissionWindow("cpu", base_window=64)
+    traces = [_trace(50 + i, 40, ties=bool(i % 2)) for i in range(8)]
+    wants = [cpu(a, h, capacity=4) for a, h in traces]
+    with ThreadPoolExecutor(8) as pool:
+        for _ in range(5):
+            gots = list(pool.map(lambda t: win(*t, capacity=4), traces))
+            for got, want in zip(gots, wants):
+                for w, g in zip(want, got):
+                    _bits_equal(w, g)

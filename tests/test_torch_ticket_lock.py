@@ -162,3 +162,54 @@ def test_cuda_kernel_bit_equal_to_plain(cuda_device, n):
         if g.dtype == np.float32:
             g, w = g.view(np.int32), w.view(np.int32)
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("n", [33, 4096])
+def test_cuda_kernel_bit_equal_when_slots_serve_many(cuda_device, n):
+    """More requesters than the CTA's 32 requester warps: N 33 gives
+    warp 0 a second requester, N 4096 each warp 128, served in order."""
+    arr, m, b = _trace(n + 1, n)
+    got = ttl.ticket_lock(*(torch.from_numpy(x).to(cuda_device)
+                            for x in (arr, m, b)))
+    want = ttl.ticket_lock_plain(torch.from_numpy(arr), torch.from_numpy(m),
+                                 torch.from_numpy(b))
+    for g, w in zip(got, want):
+        g, w = g.cpu().numpy(), w.numpy()
+        if g.dtype == np.float32:
+            g, w = g.view(np.int32), w.view(np.int32)
+        np.testing.assert_array_equal(g, w)
+
+
+def test_cuda_window_plan_is_one_launch(cuda_device):
+    arr, m, b = _trace(5, 20)
+    want = ttl.ticket_lock_window(arr, m, b, device="cpu")
+    for _ in range(3):
+        before = ttl.TICKET_LOCK.launches
+        got = ttl.ticket_lock_window(arr, m, b, device=cuda_device)
+        assert ttl.TICKET_LOCK.launches == before + 1
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+        assert np.float32(got[2]).view(np.int32) == \
+            np.float32(want[2]).view(np.int32)
+
+
+def test_cuda_wrapper_refuses_more_requesters_than_it_stages(cuda_device):
+    big = torch.zeros(ttl.MAX_N + 1, device=cuda_device)
+    with pytest.raises(ValueError, match="at most"):
+        ttl.ticket_lock(big.int(), big, big)
+
+
+def test_cuda_window_plans_from_several_threads(cuda_device):
+    """The window's pinned buffers are shared: plans made at once from
+    eight threads each get their own inputs' result."""
+    from concurrent.futures import ThreadPoolExecutor
+    traces = [_trace(40 + i, 20) for i in range(8)]
+    wants = [ttl.ticket_lock_window(*t, device="cpu") for t in traces]
+    with ThreadPoolExecutor(8) as pool:
+        for _ in range(5):
+            gots = list(pool.map(lambda t: ttl.ticket_lock_window(
+                *t, device=cuda_device), traces))
+            for got, want in zip(gots, wants):
+                np.testing.assert_array_equal(got[0], want[0])
+                assert np.float32(got[2]).view(np.int32) == \
+                    np.float32(want[2]).view(np.int32)

@@ -26,6 +26,7 @@ from repro.configs import get_arch as jget_arch  # noqa: E402
 from repro.kernels.membench.ops import make_buffer as jmake_buffer  # noqa: E402,E501
 from repro.kernels.membench.ops import membench as jmembench  # noqa: E402
 from repro.kernels.paged_attention import fused_paged_decode  # noqa: E402
+from repro.kernels.semaphore.kernel import sleeping_semaphore_pallas  # noqa: E402,E501
 from repro.kernels.ticket_lock.ops import ticket_lock_run  # noqa: E402
 from repro.kernels.xf_barrier.ops import xf_barrier as jxf_barrier  # noqa: E402,E501
 from repro.sync import SyncLibrary as JSyncLibrary  # noqa: E402
@@ -35,6 +36,7 @@ from repro.models import layers as jl  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.kernels import membench as tmb  # noqa: E402
 from repro_torch.kernels import paged_attention as tpa  # noqa: E402
+from repro_torch.kernels import semaphore as tsem  # noqa: E402
 from repro_torch.kernels import ticket_lock as ttl  # noqa: E402
 from repro_torch.kernels import xf_barrier as txb  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
@@ -144,6 +146,34 @@ def sync_rows():
         worst_acc = max(worst_acc, err(want[2], got[2]))
     rows["ticket_lock plain vs Pallas interpret: grant, trace"] = worst_int
     rows["ticket_lock plain vs Pallas interpret: acc"] = worst_acc
+    worst_acc, worst_int = 0.0, 0.0
+    for seed, slots in ((0, 1), (1, 3), (2, 32), (3, 7)):
+        rng = np.random.default_rng(seed)
+        n = int(rng.integers(2, 60))
+        arr = rng.permutation(n).astype(np.int32)
+        m = rng.uniform(0.5, 1.5, n).astype(np.float32)
+        b = rng.standard_normal(n).astype(np.float32)
+        want = ticket_lock_run(jnp.asarray(arr), jnp.asarray(m),
+                               jnp.asarray(b), interpret=True)
+        got = ttl.ticket_lock_schedule_model(arr, m, b, slots, seed=seed)
+        worst_int = max(worst_int, err(want[0], got[0]), err(want[1], got[1]))
+        worst_acc = max(worst_acc, err(want[2], got[2]))
+    rows["ticket_lock schedule model vs Pallas interpret: grant, trace"] = \
+        worst_int
+    rows["ticket_lock schedule model vs Pallas interpret: acc"] = worst_acc
+    worst = 0.0
+    for seed, cap in ((0, 4), (1, 9), (2, 33), (3, 1024)):
+        rng = np.random.default_rng(seed)
+        n = int(rng.integers(2, 60))
+        arrive = np.cumsum(rng.exponential(1.0, n)).astype(np.float32)
+        hold = rng.uniform(0.5, 20.0, n).astype(np.float32)
+        want = sleeping_semaphore_pallas(jnp.asarray(arrive),
+                                         jnp.asarray(hold), cap,
+                                         interpret=True)
+        got = tsem.semaphore_admission_model(arrive, hold, cap)
+        worst = max(worst, *(err(w, g) for w, g in zip(want, got)))
+    rows["semaphore_admission model vs Pallas interpret (K 4, 9, 33, "
+         "1024)"] = worst
     worst = 0.0
     for seed in range(6):
         rng = np.random.default_rng(seed)

@@ -19,11 +19,12 @@ JSON line with its seconds:
              4 x 4096 positions, and two launches bit-equal; the
              admission kernel bit-identical over N x K grids of random
              and tie-heavy traces; the ticket lock at N 1 to 4096 on
-             seeded permutations; the barrier over many
-             seeded traces at N 64 and 1024, every membench cell at 132
-             and 1056 steps); the two sequential kernels also print
-             their whole planning call, the launch floor and a
-             dependent-chain estimate beside the byte bound
+             seeded permutations; the barrier over seeded epochs at
+             N 1 to 32768 with poll budgets 0, 1 and 1024, every
+             membench cell at 132 and 1056 steps); the lock, the
+             admission kernel and the barrier also print their whole
+             planning call, the launch floor and a latency estimate
+             beside the byte bound
   3 parity   reduced qwen3-14b served on cuda (kernels) and on cpu
              (plain versions) from the same weights and requests:
              greedy streams and grant logs identical
@@ -83,9 +84,17 @@ MEMBENCH_CELL = dict(n_steps=1056, repeats=1000)
 # multiply, add and store, per requester.
 SEMAPHORE_STEP_CYCLES = 64
 LOCK_STEP_CYCLES = 130
+# The barrier's latency estimate (same assumed latencies, ~600 cycles for
+# a global load): its fixed part, and each check of a 128-word chunk by
+# the master (two shared loads deep, a vote, the loop), in each of its
+# two scans.
+BARRIER_CYCLES = 1200
+BARRIER_CHUNK_CYCLES = 120
 
-# every kernel of the paged-decode op (the profiler filters read it)
+# every kernel of the paged-decode op and of membench (the profiler
+# filters read them)
 DECODE_KERNELS = ("paged_decode_kernel",)
+MEMBENCH_KERNELS = ("membench_kernel", "membench_serial_kernel")
 
 SOURCES = ["paged_decode.cu", "semaphore_admission.cu", "ticket_lock.cu",
            "xf_barrier.cu", "membench.cu"]
@@ -598,7 +607,7 @@ def phase_kernels(out):
     clock_mhz = out.get("sm_clock_mhz")
     res["semaphore_admission"] = check_semaphore(launch_floor_ms, clock_mhz)
     res["ticket_lock"] = check_ticket_lock(launch_floor_ms, clock_mhz)
-    res["xf_barrier"] = check_xf_barrier(launch_floor_ms)
+    res["xf_barrier"] = check_xf_barrier(launch_floor_ms, clock_mhz)
     res["membench"] = check_membench(launch_floor_ms)
     out["kernels"] = res
     return res
@@ -728,58 +737,115 @@ def barrier_cases(rng, n):
              (rng.uniform(size=n) < 0.8).astype(np.int32), 3)]
 
 
-def check_xf_barrier(launch_floor_ms):
-    """Every output exact against the plain version over many seeded
-    epochs at N 64 (timed, everyone present) and 1024; ``done`` must
-    match even with the default 1024-poll budget."""
+def barrier_latency_ms(n, clock_mhz):
+    """Latency estimate of one epoch (not the bound): BARRIER_CYCLES for
+    the input loads, two __syncthreads, an arrival, the fence and the
+    output stores, plus BARRIER_CHUNK_CYCLES per 128-word chunk of the
+    master's two scans (present flags, then required ones), at the
+    card's maximum SM clock."""
+    return chain_ms(1, BARRIER_CYCLES + 2 * BARRIER_CHUNK_CYCLES
+                    * -(-n // 128), clock_mhz)
+
+
+def check_xf_barrier(launch_floor_ms, clock_mhz):
+    """Every output bit-equal to the plain version and the error word
+    never set, over seeded epochs at N {1, 64, 1024, 4096, MAX_N} with
+    poll budgets {0, 1, 1024}, and everyone present at N 64 and 1024 with
+    a budget of 0 or 1 fifty times each (a master that scanned before a
+    present participant's store would report done = 0 there). Timed at
+    N 64 (the kernel benchmark's shape) and 1024, with and without a
+    straggler; the plan call's anatomy at N 12."""
     import numpy as np
     import torch
     from repro_torch.kernels import xf_barrier as xb
+    from repro_torch.kernels.build import PlanStaging
     rng = np.random.default_rng(4)
     n_checked = 0
     done_seen = {0: 0, 1: 0}
-    timing = {}
-    for n in (64, 1024):
-        for _ in range(8):
+    sizes = (1, 64, 1024, 4096, xb.MAX_N)
+
+    def same(n, arrive, present, required, epoch, max_polls, what):
+        a, p, r = (torch.tensor(x, device="cuda")
+                   for x in (arrive, present, required))
+        got = xb.xf_barrier(a, epoch, p, r, max_polls=max_polls)
+        want = xb.xf_barrier_plain(a.cpu(), epoch, p.cpu(), r.cpu())
+        for g, w, name in zip(got, want, ("arrive", "release", "done",
+                                          "stragglers")):
+            check(bits_equal(g, w), f"xf_barrier N={n} {what} max_polls="
+                  f"{max_polls}: {name} differs from the plain version")
+        return int(want[2])
+
+    for n in sizes:
+        for _ in range(4 if n <= 1024 else 1):
             for name, arrive, present, required, epoch in barrier_cases(
                     rng, n):
-                a, p, r = (torch.tensor(x, device="cuda")
-                           for x in (arrive, present, required))
-                got = xb.xf_barrier(a, epoch, p, r)
-                want = xb.xf_barrier_plain(a.cpu(), epoch, p.cpu(), r.cpu())
-                for g, w, what in zip(got, want, ("arrive", "release",
-                                                  "done", "stragglers")):
-                    check(bits_equal(g, w), f"xf_barrier N={n} {name}: "
-                          f"{what} differs from the plain version")
-                done_seen[int(want[2])] += 1
+                for max_polls in (0, 1, 1024):
+                    done_seen[same(n, arrive, present, required, epoch,
+                                   max_polls, name)] += 1
+                    n_checked += 1
+    for n in (64, 1024):
+        ones = np.ones(n, np.int32)
+        for max_polls in (0, 1):
+            for _ in range(50):
+                done_seen[same(n, 0 * ones, ones, ones, 1, max_polls,
+                               "all")] += 1
                 n_checked += 1
+    timing = {}
+    for n in (64, 1024):
         ones = torch.ones(n, dtype=torch.int32, device="cuda")
         flags = torch.zeros(n, dtype=torch.int32, device="cuda")
+        absent = ones.clone()
+        absent[n // 2] = 0
         f_c, o_c = flags.cpu(), ones.cpu()
         timing[n] = {
-            "ms": cuda_ms(lambda: xb.xf_barrier(flags, 1, ones, ones),
+            "ms": cuda_ms(lambda: xb.xf_barrier(flags, 1, ones, ones,
+                                                check=False),
                           reps=20, flush_mb=1),
             "kernel_ms": kernel_ms(lambda: xb.xf_barrier(
-                flags, 1, ones, ones), "xf_barrier_kernel"),
+                flags, 1, ones, ones, check=False), "xf_barrier_kernel"),
             "plain_ms": cuda_ms(lambda: xb.xf_barrier_plain(
                 flags, 1, ones, ones), reps=20, flush_mb=1),
             "plain_cpu_ms": plain_host_ms(
-                lambda: xb.xf_barrier_plain(f_c, 1, o_c, o_c))}
-        absent = ones.clone()
-        absent[n // 2] = 0
-        timing[n]["straggler_kernel_ms"] = kernel_ms(
-            lambda: xb.xf_barrier(flags, 1, absent, ones),
-            "xf_barrier_kernel", reps=5)
+                lambda: xb.xf_barrier_plain(f_c, 1, o_c, o_c)),
+            "straggler_kernel_ms": kernel_ms(lambda: xb.xf_barrier(
+                flags, 1, absent, ones, check=False), "xf_barrier_kernel",
+                reps=5),
+            "latency_estimate_ms": barrier_latency_ms(n, clock_mhz)}
+        xb.XF_BARRIER.check_pending()
+    z12, o12 = np.zeros(12, np.int32), np.ones(12, np.int32)
+    call_ms = host_ms(lambda: xb.xf_barrier_window(z12, 1, o12, o12,
+                                                   device="cuda"))
+    from repro_torch.sync import SyncLibrary
+    lib = SyncLibrary.host_default()
+    stage = PlanStaging(torch.device("cuda"), 3 * 32, 3 * 32 + 2)
+    z32, o32 = np.zeros(32, np.int32), np.ones(32, np.int32)
+    anatomy = plan_anatomy(
+        lambda: stage.run(xb.XF_BARRIER, (z32, o32, o32), 1, 1024, 32),
+        lambda: xb.xf_barrier_window(z12, 1, o12, o12, device="cuda"),
+        lambda: lib.plan_barrier(o12, epoch=1, backend="cuda"),
+        lambda: lib.plan_barrier(o12, epoch=1, backend="ref"))
     n = 64
-    nbytes = 6 * n * 4 + 4   # arrive, present, required in; 3 out + done
+    nbytes = 6 * n * 4 + 8   # arrive, present, required in; 3 out, done, error
     bms, bby = bound_ms(nbytes, 0.0, "float32")
     return {"epochs": n_checked, "done_1": done_seen[1],
-            "done_0": done_seen[0], "exact": True, "max_abs_err": 0.0,
+            "done_0": done_seen[0], "exact": True, "error_word_set": False,
+            "sizes": list(sizes), "max_polls": [0, 1, 1024],
+            "max_abs_err": 0.0,
             "shape": {"n": n, "max_polls": 1024}, "ms": timing[n]["ms"],
             "kernel_ms": timing[n]["kernel_ms"],
             "plain_ms": timing[n]["plain_ms"], "plain_on": "card (torch)",
             "plain_cpu_ms": timing[n]["plain_cpu_ms"],
             "straggler_kernel_ms": timing[n]["straggler_kernel_ms"],
+            "latency_estimate_ms": timing[n]["latency_estimate_ms"],
+            "latency_estimate": f"{BARRIER_CYCLES} cycles plus "
+                                f"{BARRIER_CHUNK_CYCLES} per 128-word "
+                                "chunk of the master's two scans, at "
+                                "assumed latencies and the max SM clock; "
+                                "an estimate, not the bound",
+            "call_ms": call_ms,
+            "call": "xf_barrier_window of 12 participants on the 32-wide "
+                    "window, host clock",
+            "plan_anatomy_us_n12": anatomy,
             "n1024": timing[1024], "launch_floor_ms": launch_floor_ms,
             "bound_ms": bms, "bound_by": bby, "bytes": nbytes, "ops": 0.0,
             "library_ms": None,
@@ -803,9 +869,12 @@ def membench_library(buf, n_steps, contentious, write, repeats):
 
 
 def check_membench(launch_floor_ms):
-    """All four cells at 132 and 1056 steps (1 and 8 CTAs per SM), 1000
-    repeats: buffer exact, sums within rtol 1e-6, and each cell timed
-    with its plain version and library expression on the card."""
+    """All four cells at 132 and 1056 steps (1 and 8 CTAs per SM for the
+    one-CTA-per-step cells), 1000 repeats: buffer exact, sums within rtol
+    1e-6, and each cell timed with its plain version and library
+    expression on the card. Beside the bound, each cell at 1056 steps
+    carries its accesses' own traffic (steps x repeats x 512 B) and the
+    rate its kernel time gives: information, not a bound."""
     import torch
     from repro_torch.kernels import membench as mb
     rtol = 1e-6
@@ -829,22 +898,24 @@ def check_membench(launch_floor_ms):
                       f"by rtol {err} > {rtol}")
                 worst = max(worst, float((sk - sr).abs().max()))
                 cell = {"rel_err": err,
-                        "ms": cuda_ms(lambda: mb.membench(
-                            buf, check=False, **kw), reps=10, flush_mb=1),
+                        "ms": cuda_ms(lambda: mb.membench(buf, **kw),
+                                      reps=10, flush_mb=1),
                         "kernel_ms": kernel_ms(lambda: mb.membench(
-                            buf, check=False, **kw), "membench_kernel",
-                            reps=10)
+                            buf, **kw), MEMBENCH_KERNELS, reps=10)
                         if n_steps == MEMBENCH_CELL["n_steps"] else None,
                         "plain_ms": cuda_ms(lambda: mb.membench_plain(
                             buf, **kw), reps=10, flush_mb=1),
                         "library_ms": cuda_ms(membench_library(buf, **kw),
                                               reps=10, flush_mb=1)}
-                mb.MEMBENCH.check_pending()
                 rows = buf.shape[0]
                 cell["bytes"] = 2 * rows * mb.LANE * 4 + 4 * n_steps
                 cell["ops"] = 0.0 if wr else float(n_steps * (mb.LANE + 1))
                 cell["bound_ms"], cell["bound_by"] = bound_ms(
                     cell["bytes"], cell["ops"], "float32")
+                cell["access_bytes"] = n_steps * kw["repeats"] * mb.LANE * 4
+                cell["access_tb_per_s"] = (
+                    cell["access_bytes"] / cell["kernel_ms"] / 1e9
+                    if cell["kernel_ms"] else None)
                 cells[f"{tag}_{n_steps}"] = cell
     row = cells[f"cr_{MEMBENCH_CELL['n_steps']}"]
     return {"cells": cells, "buffers_exact": True, "sums_rtol": rtol,
@@ -855,7 +926,8 @@ def check_membench(launch_floor_ms):
             "plain_on": "card (torch)", "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "library": "repeats * buf[rows].sum(-1) (read cells); "
-                       "index_fill / index_copy (write cells)"}
+                       "index_fill / index_copy (write cells); not the "
+                       "same work: no accesses per step"}
 
 
 # ------------------------------------------------------ phases 3-4: serving
@@ -1129,8 +1201,12 @@ def phase_primitives(out):
             ("stragglers", strag, ones, ("cuda", "ref", "host")),
             ("rank0_absent", no0, no0, ("cuda", "ref", "host")),
             ("rank0_absent_required", no0, ones, ("cuda", "ref"))):
+        before = counters["xf_barrier"].launches
         bp = {be: gpu.plan_barrier(present, required, backend=be)
               for be in backends}
+        made = counters["xf_barrier"].launches - before
+        check(made == 1, f"plan_barrier {name}: {made} barrier launches "
+              f"for one cuda plan, want 1")
         for be, plan in bp.items():
             check(plan.done == bp["ref"].done
                   and np.array_equal(plan.straggler_ranks,
@@ -1170,6 +1246,8 @@ def phase_primitives(out):
                              "ms": r["ms"]} for r in recs],
             "membench_ms_per_1000_accesses": cells,
             "membench_cell": MEMBENCH_CELL,
+            "barrier_plan_latency_us": latency["backends_plan_latency_us"][
+                "barrier"],
             "plan_latency_us": latency, "table5": rows[-2]}
 
 

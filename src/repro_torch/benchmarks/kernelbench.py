@@ -72,10 +72,11 @@ def bench_xf_barrier(dev: torch.device, n: int = 64) -> Record:
     got = xb.xf_barrier(flags, 1, ones, ones)
     want = xb.xf_barrier_plain(flags.cpu(), 1, ones.cpu(), ones.cpu())
     ok = all(_same(g, w) for g, w in zip(got, want)) and int(got[2]) == 1
+    ms = device_ms(lambda: xb.xf_barrier(flags, 1, ones, ones, check=False),
+                   dev)
+    xb.XF_BARRIER.check_pending()
     return {"family": "xf_barrier", "name": f"kernel_xf_barrier_n{n}",
-            "n": n, "device": dev.type, "match": ok,
-            "ms": device_ms(lambda: xb.xf_barrier(flags, 1, ones, ones),
-                            dev)}
+            "n": n, "device": dev.type, "match": ok, "ms": ms}
 
 
 def bench_ticket_lock(dev: torch.device, n: int = 64) -> Record:
@@ -131,8 +132,7 @@ def bench_membench(dev: torch.device, n_steps: int = 16,
             if wr:   # the sequential grid's closed form
                 ok &= _same(sk, (repeats + torch.arange(n_steps)).float()
                             * mb.LANE)
-            ms = device_ms(lambda: mb.membench(buf, check=False, **kw), dev)
-            mb.MEMBENCH.check_pending()
+            ms = device_ms(lambda: mb.membench(buf, **kw), dev)
             tag = f"{'c' if cont else 'n'}{'w' if wr else 'r'}"
             out.append({"family": "membench",
                         "name": f"kernel_membench_{tag}",

@@ -4,46 +4,50 @@
 // Replaces the TPU kernel src/repro/kernels/membench/kernel.py
 // (membench_pallas, body membench_kernel): the cells {contentious,
 // noncontentious} x {read, write} over 512-byte rows of 128 floats.
-// Step i is one CTA of 128 threads, one float lane each; it hammers row 0
+// Step i runs 128 threads, one float lane each; it hammers row 0
 // (contentious) or its own row i (noncontentious) ``repeats`` times:
 //
 //   write: store (it + i + 1) for it in [0, repeats); the row ends at
 //          repeats + i; checksum = sum of the row read back after the loop
 //   read:  load the row ``repeats`` times; checksum = sum of every load
 //
-// Every access reaches memory: the loads and stores are relaxed
-// device-scope atomic_ref accesses (ld/st.relaxed.gpu), which the
-// compiler may neither merge nor hoist out of the loop, so the time
-// measures the accesses. Read checksums accumulate each lane's loads in
+// Every access reaches memory, so the time measures the accesses. The
+// loads are relaxed device-scope atomic_ref loads (ld.relaxed.gpu), each
+// of which the compiled loop keeps. The stores are st.volatile, which the
+// PTX memory model treats as relaxed at system scope (stronger than the
+// cell's device scope) and which ptxas never merges: relaxed stores,
+// as atomic_ref stores and as inline st.relaxed.gpu alike, were merged
+// four to one (a store loop unrolled four times kept one store per
+// unrolled iteration, so the write cells made a quarter of their
+// stores), which the memory model allows, since no thread can tell the
+// merged stores apart. Read checksums accumulate each lane's loads in
 // double (exact for any repeats below 2^29) and round once to float, so
 // they agree with the plain repeats * row_sum to float32 rounding.
 //
-// The read cells and the noncontentious write cell are order-free and
-// run every step at once. The contentious write cell is not: its result
-// (row 0 ends at repeats + n_steps - 1, step i's checksum is
-// 128 * (repeats + i)) is defined by the TPU's sequential grid. That cell
-// hands row 0 from step to step: each CTA takes its step number from a
-// global counter (atomicAdd, so every lower step is already resident and
-// the wait cannot deadlock), polls a step-turn word with acquire loads
-// until it is its turn, runs its loop, and release-stores the next turn.
-// Its time is therefore a serialized hand-off, not concurrent contention.
-// A poll budget turns a stuck hand-off into an error word the host
-// raises on, never a hang.
+// The read cells and the noncontentious write cell are order-free: one
+// CTA per step, all steps at once. The contentious write cell is not:
+// its result (row 0 ends at repeats + n_steps - 1, step i's checksum is
+// 128 * (repeats + i)) is defined by the TPU's sequential grid on one
+// core. So that cell is one CTA of 128 threads that runs the steps in
+// order, as that core did: per step every lane makes its ``repeats``
+// stores to row 0, reads its word back, the CTA sums the row into
+// sums[step], and a __syncthreads closes the step. What it measures is
+// serialized single-CTA stores to one line, with no hand-off between
+// CTAs: no step counter, turn word or poll, so nothing can get stuck.
+// The paper's concurrent contended write, every CTA storing to one line
+// at once, is a different cell; the port does not run it.
 //
 // What bounds it on this card: the function moves only the buffer in and
 // out once, so the bound is tiny; what the cells measure is the latency
-// and throughput of repeated accesses to one line (contentious: all CTAs
-// on one L2 line) or to distinct lines (noncontentious).
+// and throughput of repeated accesses to one line (contentious) or to
+// distinct lines (noncontentious): 512 bytes per access step of a CTA.
 #include <cuda/atomic>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kLane = 128;
-constexpr int kMaxPolls = 1 << 24;
-constexpr unsigned kSleepNs = 32;
 
-using DeviceInt = cuda::atomic_ref<int, cuda::thread_scope_device>;
 using DeviceFloat = cuda::atomic_ref<float, cuda::thread_scope_device>;
 
 template <typename T>
@@ -56,74 +60,75 @@ __device__ T block_sum(T v, T* scratch) {
   return total;
 }
 
-// state: [step counter, step turn, error], zeroed by the caller.
+// One store that reaches memory as written: never merged with the next.
+__device__ __forceinline__ void store_volatile(float* p, float v) {
+  asm volatile("st.volatile.global.f32 [%0], %1;" ::"l"(
+                   __cvta_generic_to_global(p)), "f"(v)
+               : "memory");
+}
+
+// One write step: ``repeats`` stores of (it + step + 1) to this lane's
+// word, then the row read back and summed.
+__device__ float write_step(float* word, int step, int repeats,
+                            float* scratch) {
+  for (int it = 0; it < repeats; ++it) {
+    store_volatile(word, static_cast<float>(it + step + 1));
+  }
+  return block_sum(DeviceFloat(*word).load(cuda::memory_order_relaxed),
+                   scratch);
+}
+
+// One CTA per step: the read cells and the noncontentious write cell.
 __global__ void __launch_bounds__(kLane) membench_kernel(
-    float* buf, float* __restrict__ sums, int* state, int contentious,
-    int write, int repeats) {
+    float* buf, float* __restrict__ sums, int contentious, int write,
+    int repeats) {
   __shared__ double dscratch[kLane / 32];
   __shared__ float fscratch[kLane / 32];
-  __shared__ int step_s;
-  __shared__ int ok_s;
-  const bool ordered = contentious && write;
-  DeviceInt counter(state[0]), turn(state[1]), error(state[2]);
-  if (threadIdx.x == 0) {
-    int step = blockIdx.x;
-    int ok = 1;
-    if (ordered) {
-      step = counter.fetch_add(1, cuda::memory_order_relaxed);
-      for (int polls = 0;
-           turn.load(cuda::memory_order_acquire) != step; ++polls) {
-        if (polls >= kMaxPolls || error.load(cuda::memory_order_relaxed)) {
-          error.store(1, cuda::memory_order_relaxed);
-          ok = 0;
-          break;
-        }
-        __nanosleep(kSleepNs);
-      }
-    }
-    step_s = step;
-    ok_s = ok;
-  }
-  __syncthreads();
-  if (!ok_s) return;
-  const int step = step_s;
+  const int step = blockIdx.x;
   const int row = contentious ? 0 : step;
-  DeviceFloat word(buf[row * kLane + threadIdx.x]);
+  float* word = &buf[row * kLane + threadIdx.x];
   if (write) {
-    for (int it = 0; it < repeats; ++it) {
-      word.store(static_cast<float>(it + step + 1),
-                 cuda::memory_order_relaxed);
-    }
-    const float total =
-        block_sum(word.load(cuda::memory_order_relaxed), fscratch);
+    const float total = write_step(word, step, repeats, fscratch);
     if (threadIdx.x == 0) sums[step] = total;
-    if (ordered) {
-      __syncthreads();  // every lane's stores precede the hand-off
-      if (threadIdx.x == 0) {
-        __threadfence();
-        turn.store(step + 1, cuda::memory_order_release);
-      }
-    }
   } else {
+    const DeviceFloat cell(*word);
     double acc = 0.0;
     for (int it = 0; it < repeats; ++it) {
-      acc += static_cast<double>(word.load(cuda::memory_order_relaxed));
+      acc += static_cast<double>(cell.load(cuda::memory_order_relaxed));
     }
     const double total = block_sum(acc, dscratch);
     if (threadIdx.x == 0) sums[step] = static_cast<float>(total);
   }
 }
 
+// The contentious write cell: one CTA runs every step in order.
+__global__ void __launch_bounds__(kLane) membench_serial_kernel(
+    float* buf, float* __restrict__ sums, int n_steps, int repeats) {
+  __shared__ float fscratch[kLane / 32];
+  for (int step = 0; step < n_steps; ++step) {
+    const float total =
+        write_step(&buf[threadIdx.x], step, repeats, fscratch);
+    if (threadIdx.x == 0) sums[step] = total;
+    __syncthreads();  // the step ends; the next reuses the scratch
+  }
+}
+
 }  // namespace
 
-// Returns a cudaError_t; the error word (state[2]) is read by the host.
-extern "C" int membench_launch(void* buf, void* sums, void* state,
-                               int n_steps, int contentious, int write,
-                               int repeats, void* stream) {
+// Returns a cudaError_t.
+extern "C" int membench_launch(void* buf, void* sums, int n_steps,
+                               int contentious, int write, int repeats,
+                               void* stream) {
   if (n_steps <= 0) return 0;
-  membench_kernel<<<n_steps, kLane, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(buf), static_cast<float*>(sums),
-      static_cast<int*>(state), contentious, write, repeats);
+  const auto s = static_cast<cudaStream_t>(stream);
+  float* b = static_cast<float*>(buf);
+  float* out = static_cast<float*>(sums);
+  if (contentious && write) {
+    membench_serial_kernel<<<1, kLane, 0, s>>>(b, out, n_steps, repeats);
+  } else {
+    membench_kernel<<<n_steps, kLane, 0, s>>>(b, out, contentious, write,
+                                             repeats);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

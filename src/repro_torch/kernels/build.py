@@ -95,7 +95,7 @@ class CudaKernel:
     pinned host memory, one launch, packed outputs copied back, one
     synchronise. :meth:`plan` calls it and counts its launch.
 
-    Kernels that wait on each other (the lock, the barrier's hand-offs)
+    Kernels that wait on each other (the lock, the barrier's master)
     carry a poll budget and report its expiry in an error word on the
     device. :meth:`check_word` reads it after a launch and raises;
     a timing loop, which must not synchronise inside its timed window,

@@ -8,7 +8,9 @@ measures on the H100. The cells are {contentious, noncontentious} x
 step i hammers row 0 (contentious) or its own row i ``repeats`` times.
 
 * :func:`membench` — CUDA tensors launch the kernel (one CTA of 128
-  threads per step); CPU tensors take the plain version. Returns
+  threads per step; the contentious write cell, whose result is the
+  sequential order of its steps, one CTA that runs them in order); CPU
+  tensors take the plain version. Returns
   ``(buffer', sums)``: the buffer after every step and each step's
   checksum. The buffers agree exactly; read checksums to float32
   rounding of ``repeats * row_sum``.
@@ -31,17 +33,16 @@ LANE = 128  # float lanes per row: 512-byte rows, one CTA thread each
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 MEMBENCH = CudaKernel(
-    "membench.cu", "membench_launch", [_P, _P, _P, _I, _I, _I, _I, _P])
+    "membench.cu", "membench_launch", [_P, _P, _I, _I, _I, _I, _P])
 
 Result = Tuple[torch.Tensor, torch.Tensor]
 
 
 def membench(buf: torch.Tensor, *, n_steps: int, contentious: bool,
-             write: bool, repeats: int = 16, check: bool = True) -> Result:
+             write: bool, repeats: int = 16) -> Result:
     """Run one cell of the benchmark grid on a ``(R, 128)`` float32
     buffer (``R >= n_steps`` for a noncontentious cell); the input is not
-    modified. On a CUDA tensor a stuck step hand-off raises;
-    ``check=False`` defers that read to ``MEMBENCH.check_pending()``."""
+    modified."""
     if buf.dim() != 2 or buf.shape[1] != LANE:
         raise ValueError(f"expected a (R, {LANE}) buffer; got "
                          f"{tuple(buf.shape)}")
@@ -61,15 +62,11 @@ def membench(buf: torch.Tensor, *, n_steps: int, contentious: bool,
         raise TypeError("membench needs a float32 buffer")
     dev = buf.device
     out = buf.contiguous().clone()
-    sums = torch.zeros(n_steps, dtype=torch.float32, device=dev)
-    state = torch.zeros(3, dtype=torch.int32, device=dev)
+    sums = torch.empty(n_steps, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        MEMBENCH.launch(out.data_ptr(), sums.data_ptr(), state.data_ptr(),
-                        n_steps, int(contentious), int(write), repeats,
-                        stream)
-    MEMBENCH.check_word(state[2], "a step exhausted its poll budget "
-                        "waiting for the row hand-off", check)
+        MEMBENCH.launch(out.data_ptr(), sums.data_ptr(), n_steps,
+                        int(contentious), int(write), repeats,
+                        torch.cuda.current_stream(dev).cuda_stream)
     return out, sums
 
 
@@ -121,16 +118,15 @@ def time_cell(n_steps: int = 64, *, contentious: bool, write: bool,
     buf = make_buffer(n_steps, device=dev)
     kw = dict(n_steps=n_steps, contentious=contentious, write=write,
               repeats=repeats)
-    membench(buf, **kw)                       # warm-up, checked
+    membench(buf, **kw)                       # warm-up
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        membench(buf, check=False, **kw)
+        membench(buf, **kw)
         end.record()
         torch.cuda.synchronize(dev)
         times.append(start.elapsed_time(end))
-    MEMBENCH.check_pending()
     times.sort()
     return times[len(times) // 2] * (1000.0 / max(repeats, 1))

@@ -74,6 +74,31 @@ def test_random_buffers_match_oracle(seed):
                                        rtol=1e-6)
 
 
+@pytest.mark.parametrize("n_steps", [0, 1, 7, 33])
+def test_plain_contentious_write_matches_oracle(n_steps):
+    """The cell the CUDA kernel runs as one CTA, step after step: row 0
+    ends at repeats + n_steps - 1, step i's checksum is 128 (repeats +
+    i), every other row is untouched."""
+    rng = np.random.default_rng(n_steps)
+    buf = rng.uniform(size=(max(8, n_steps), 128)).astype(np.float32)
+    kw = dict(contentious=True, write=True, repeats=1000)
+    br, sr = membench_ref(jnp.asarray(buf), n_steps, **kw)
+    bt, st = tmb.membench(torch.from_numpy(buf), n_steps=n_steps, **kw)
+    np.testing.assert_array_equal(bt.numpy(), np.asarray(br))
+    np.testing.assert_array_equal(st.numpy(),
+                                  np.asarray(sr, np.float32).reshape(-1))
+    np.testing.assert_array_equal(bt.numpy()[1:], buf[1:])
+    assert st.shape == (n_steps,)
+
+
+def test_membench_takes_no_check_keyword():
+    """Nothing in a cell waits on another CTA, so there is no error word
+    to check and no ``check=``."""
+    with pytest.raises(TypeError, match="check"):
+        tmb.membench(torch.zeros(8, 128), n_steps=4, contentious=True,
+                     write=True, check=False)
+
+
 def test_wrapper_checks_its_buffer():
     with pytest.raises(ValueError, match=r"\(R, 128\)"):
         tmb.membench(torch.zeros(8, 64), n_steps=4, contentious=True,
@@ -116,3 +141,20 @@ def test_cuda_kernel_matches_plain(cuda_device, contentious, write):
     np.testing.assert_allclose(sk.cpu().numpy(), sr.numpy(), rtol=1e-6)
     assert tmb.time_cell(132, contentious=contentious, write=write,
                          repeats=100, device=cuda_device) > 0
+
+
+@pytest.mark.parametrize("n_steps", [132, 1056])
+@pytest.mark.parametrize("contentious", [True, False])
+@pytest.mark.parametrize("write", [True, False])
+def test_cuda_cells_at_the_benchmark_sizes(cuda_device, n_steps,
+                                           contentious, write):
+    """Every cell at 1 and 8 CTAs per SM (1000 repeats): the buffer
+    bit-equal, the sums within rtol 1e-6 of the plain version."""
+    buf = tmb.make_buffer(n_steps, torch.Generator().manual_seed(n_steps),
+                          device=cuda_device)
+    kw = dict(n_steps=n_steps, contentious=contentious, write=write,
+              repeats=1000)
+    bk, sk = tmb.membench(buf, **kw)
+    br, sr = tmb.membench_plain(buf.cpu(), **kw)
+    assert torch.equal(bk.cpu().view(torch.int32), br.view(torch.int32))
+    np.testing.assert_allclose(sk.cpu().numpy(), sr.numpy(), rtol=1e-6)

@@ -4,7 +4,8 @@ pure-jnp oracle on the cases of tests/test_kernels.py — every output
 exact — plus stale flags, random membership and windowed padding.
 
 The CUDA kernel runs only on a card (``test_cuda_*`` skip without one;
-``chip_smoke.py`` phase 2 checks it exact on the card every run).
+``chip_smoke.py`` phase 2 checks it exact on the card every run). Its
+schedule is modelled on the CPU in tests/test_torch_xf_barrier_model.py.
 """
 
 import warnings
@@ -118,6 +119,27 @@ def test_wrapper_checks_shapes_and_devices():
         txb.xf_barrier(m, 1, m, m)
 
 
+def test_size_limit_names_the_limit():
+    txb._check_size(txb.MAX_N)
+    with pytest.raises(ValueError, match=f"at most {txb.MAX_N}"):
+        txb._check_size(txb.MAX_N + 1)
+
+
+@pytest.mark.parametrize("max_polls", [0, 1])
+def test_window_budget_does_not_change_the_result(max_polls):
+    rng = np.random.default_rng(max_polls)
+    n = 20
+    arrive = rng.integers(0, 3, n).astype(np.int32)
+    present = (rng.uniform(size=n) < 0.85).astype(np.int32)
+    required = np.ones(n, np.int32)
+    got = txb.xf_barrier_window(arrive, 2, present, required,
+                                max_polls=max_polls, device="cpu")
+    want = jops.xf_barrier_window(arrive, 2, present, required,
+                                  max_polls=max_polls, interpret=True)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))
+
+
 def test_entry_points_run_on_the_card_by_default():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
@@ -151,3 +173,68 @@ def test_cuda_kernel_equal_to_plain(cuda_device, n, case):
     assert txb.XF_BARRIER.launches == before + 1
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+@pytest.mark.parametrize("n", [64, 1024])
+@pytest.mark.parametrize("max_polls", [0, 1])
+def test_cuda_budget_does_not_change_the_result(cuda_device, n, max_polls):
+    """Everyone present with a budget of 0 or 1: a master that scanned
+    before a present participant had stored its flag would report done
+    = 0 where the reference reports 1."""
+    ones = torch.ones(n, dtype=torch.int32)
+    want = txb.xf_barrier_plain(torch.zeros_like(ones), 1, ones, ones)
+    a, o = torch.zeros_like(ones).to(cuda_device), ones.to(cuda_device)
+    for _ in range(50):
+        got = txb.xf_barrier(a, 1, o, o, max_polls=max_polls)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+@pytest.mark.parametrize("n", [4096, txb.MAX_N])
+@pytest.mark.parametrize("max_polls", [0, 1024])
+def test_cuda_large_barriers_equal_to_plain(cuda_device, n, max_polls):
+    rng = np.random.default_rng(n + max_polls)
+    for present, required in (
+            (np.ones(n, np.int32), np.ones(n, np.int32)),
+            ((rng.uniform(size=n) < 0.9).astype(np.int32),
+             (rng.uniform(size=n) < 0.8).astype(np.int32))):
+        arrive = rng.integers(0, 4, n).astype(np.int32)
+        ts = [torch.from_numpy(x) for x in (arrive, present, required)]
+        a, p, r = (t.to(cuda_device) for t in ts)
+        got = txb.xf_barrier(a, 3, p, r, max_polls=max_polls)
+        want = txb.xf_barrier_plain(ts[0], 3, ts[1], ts[2])
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+def test_cuda_size_limit_raises(cuda_device):
+    z = torch.zeros(txb.MAX_N + 1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match=f"at most {txb.MAX_N}"):
+        txb.xf_barrier(z, 1, z, z)
+    with pytest.raises(ValueError, match=f"at most {txb.MAX_N}"):
+        txb.xf_barrier_window(np.zeros(txb.MAX_N + 1, np.int32), 1,
+                              np.ones(txb.MAX_N + 1, np.int32),
+                              np.ones(txb.MAX_N + 1, np.int32),
+                              window=txb.MAX_N + 1, device=cuda_device)
+
+
+@pytest.mark.parametrize("n,window", [(5, 32), (12, 32), (33, 32)])
+def test_cuda_window_equal_to_cpu(cuda_device, n, window):
+    """One launch per window plan, and the plan equal to the CPU's."""
+    rng = np.random.default_rng(n)
+    for max_polls in (0, 1, 1024):
+        arrive = rng.integers(0, 3, n).astype(np.int32)
+        present = (rng.uniform(size=n) < 0.85).astype(np.int32)
+        required = (rng.uniform(size=n) < 0.9).astype(np.int32)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            before = txb.XF_BARRIER.launches
+            got = txb.xf_barrier_window(arrive, 2, present, required,
+                                        max_polls=max_polls, window=window,
+                                        device=cuda_device)
+            assert txb.XF_BARRIER.launches == before + 1
+            want = txb.xf_barrier_window(arrive, 2, present, required,
+                                         max_polls=max_polls, window=window,
+                                         device="cpu")
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(np.asarray(g), np.asarray(w))

@@ -174,7 +174,7 @@ def sync_rows():
         worst = max(worst, *(err(w, g) for w, g in zip(want, got)))
     rows["semaphore_admission model vs Pallas interpret (K 4, 9, 33, "
          "1024)"] = worst
-    worst = 0.0
+    worst = worst_model = 0.0
     for seed in range(6):
         rng = np.random.default_rng(seed)
         n = int(rng.integers(1, 200))
@@ -187,7 +187,15 @@ def sync_rows():
         got = txb.xf_barrier(torch.tensor(arrive), 2, torch.tensor(present),
                              torch.tensor(required))
         worst = max(worst, *(err(w, g) for w, g in zip(want, got)))
+        for max_polls in (0, 1):
+            model = txb.xf_barrier_schedule_model(
+                arrive, 2, present, required, slots=32,
+                max_polls=max_polls, seed=seed)
+            worst_model = max(worst_model, *(err(w, g) for w, g in zip(
+                want, model)))
     rows["xf_barrier plain vs Pallas interpret (all outputs)"] = worst
+    rows["xf_barrier schedule model (budget 0, 1) vs Pallas interpret"] = \
+        worst_model
     worst = 0.0
     for cont in (True, False):
         for wr in (True, False):

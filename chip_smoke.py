@@ -2,7 +2,7 @@
 """Drive the PyTorch port's main paths on one CUDA card: serving, and
 the sync library's plans with the paper's kernel benchmarks.
 
-    python3 chip_smoke.py            # phases 1-4 and 6, one card
+    python3 chip_smoke.py            # phases 1-4, 6 and 7, one card
 
 Run from the root of a checkout; it needs ``src/repro_torch`` beside it
 and a CUDA card, and exits non-zero without printing a result otherwise.
@@ -18,23 +18,31 @@ JSON line with its seconds:
              entries, against its split model, on a long-context row of
              4 x 4096 positions, and two launches bit-equal; the
              admission kernel bit-identical over N x K grids of random
-             and tie-heavy traces; the ticket lock at N 1 to 4096 on
-             seeded permutations; the barrier over seeded epochs at
-             N 1 to 32768 with poll budgets 0, 1 and 1024, every
-             membench cell at 132 and 1056 steps); the lock, the
+             and tie-heavy traces, and past its register layout at K
+             1025 and 2048; the ticket lock at N 1 to 4096 on seeded
+             permutations, and past its staging at N 16385 and 32768;
+             the barrier over seeded epochs at N 1 to 32768, and with
+             global flags at 32769 and 65536, with poll budgets 0, 1
+             and 1024; every membench cell at 132 and 1056 steps; the
+             past-limit kernels timed beside the fast path at the old
+             limit); the lock, the
              admission kernel and the barrier also print their whole
              planning call, the launch floor and a latency estimate
              beside the byte bound
   3 parity   reduced qwen3-14b served on cuda (kernels) and on cpu
-             (plain versions) from the same weights and requests:
-             greedy streams and grant logs identical
+             (plain versions) from the same weights and requests — the
+             main path, the slot arena one-shot and chunked, the paged
+             arena one-shot with eager growth, and the legacy engine on
+             two requests: greedy streams and grant logs identical
   4 serve    full-width qwen3-14b (40 layers, bf16) serving 8 requests
              through the paged, chunked-prefill, bucketed engine; launch
              counters prove both kernels carried the path
   5 profile  (only when named: ``--phases 1,5``) six decode rounds of
              the phase-4 workload timed plainly, then six more under
              torch.profiler: device time by kernel and the device's
-             idle share (busy over the unprofiled wall time)
+             idle share (busy over the unprofiled wall time);
+             ``--profile-layout slots`` profiles phase 7's slot-arena
+             engine instead
   6 primitives  the sync library's plan path on the card: a GPU machine
              abstraction resolves to the ``cuda`` backend; plan_mutex,
              plan_mutex_bounded and plan_barrier agree with the ``ref``
@@ -43,9 +51,15 @@ JSON line with its seconds:
              timed at the paper's size, and the plan latencies; launch
              counters prove the lock, barrier and membench kernels
              carried the path
+  7 slots    the reference's default serving path at full width, with
+             phase 4's weights: the slot arena, one-shot prefill, decode
+             chunk 2, phase 4's 8 requests; then the legacy loop on the
+             first 2; launch counters prove the admission kernel carried
+             the slots path
 
 Then one JSON line naming every kernel with its launches (from phase 4
-for the serving kernels, from phase 6 for the others), times and bound,
+for the serving kernels, from phase 6 for the others; each path's in
+``launches_by_path``), times and bound,
 and last the device line. Every failed check exits non-zero before the
 last line.
 """
@@ -142,28 +156,31 @@ def kernel_ms(fn, name, reps: int = 20):
     op), over ``reps`` calls, from torch.profiler (CUPTI): the kernels
     alone. An event pair around a call also counts the wrapper's small
     fills and the host's gaps between its ops, which for these
-    latency-bound kernels can be most of the time. ``None`` when the
-    profiler shows no device time for them."""
+    latency-bound kernels can be most of the time. ``None`` when two
+    traces in a row show no device time for them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     names = (name,) if isinstance(name, str) else tuple(name)
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = 0.0
-    for evt in prof.key_averages():
-        if not any(n in evt.key for n in names) or "CUDA" not in str(
-                getattr(evt, "device_type", "")):
-            continue
-        dev_us = getattr(evt, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(evt, "self_cuda_time_total", 0.0)
-        total_us += dev_us
-    return total_us / reps / 1e3 if total_us else None
+    for _ in range(2):     # a trace that caught no kernel is taken again
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = 0.0
+        for evt in prof.key_averages():
+            if not any(n in evt.key for n in names) or "CUDA" not in str(
+                    getattr(evt, "device_type", "")):
+                continue
+            dev_us = getattr(evt, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(evt, "self_cuda_time_total", 0.0)
+            total_us += dev_us
+        if total_us:
+            return total_us / reps / 1e3
+    return None
 
 
 def host_ms(fn, reps: int = 20) -> float:
@@ -520,11 +537,21 @@ def plan_anatomy(run_c, window, library, library_ref):
             "library_ref": median_us(library_ref)}
 
 
+def saturating_trace(rng, n):
+    """Sorted arrivals inside one hold: past K of them, they wait."""
+    import numpy as np
+    return (np.sort(rng.uniform(0.0, 0.5, n)).astype(np.float32),
+            rng.integers(1, 9, n).astype(np.float32))
+
+
 def check_semaphore(launch_floor_ms, clock_mhz):
     """Bit-identical to the plain version on N {1, 64, 128, 1000} x K {1,
-    4, 8, 9, 32, 33, 64, 1024} over random and tie-heavy traces; timed at
-    the main path's shape (the engine's 64-wide planning window at
-    capacity 4), with the kernel alone at K 33 and 1024 beside it."""
+    4, 8, 9, 32, 33, 64, 1024} over random and tie-heavy traces, and past
+    the register layout (the column kernel) at K 1025 and 2048 on
+    saturating traces of N 64 and K + 300 and through a planning window;
+    timed at the main path's shape (the engine's 64-wide planning window
+    at capacity 4), with the kernel alone at K 33 and 1024 beside it and
+    at K 1024 / 1025 / 2048 on N 64 and N 1324 / 1325 / 2348."""
     import numpy as np
     import torch
     from repro_torch.kernels import semaphore as sem
@@ -545,6 +572,31 @@ def check_semaphore(launch_floor_ms, clock_mhz):
                     check(bits_equal(x, y), f"semaphore_admission N={n} "
                           f"K={cap} ties={ties}: {name} differs")
                 n_checked += 1
+    past = {}
+    for cap in (1024, 1025, 2048):
+        for n in (64, cap + 300):
+            arr, hold = saturating_trace(rng, n)
+            a_t, h_t = (torch.tensor(x, device="cuda") for x in (arr, hold))
+            got = sem.semaphore_admission(a_t, h_t, cap)
+            want = sem.semaphore_admission_plain(a_t.cpu(), h_t.cpu(), cap)
+            for x, y, name in zip(got, want, ("grant", "release",
+                                              "waited")):
+                check(bits_equal(x, y), f"semaphore_admission N={n} "
+                      f"K={cap}: {name} differs")
+            n_checked += 1
+            past[f"k{cap}_n{n}"] = {
+                "waited": int(want[2].sum()),
+                "kernel_ms": kernel_ms(lambda: sem.semaphore_admission(
+                    a_t, h_t, cap), "semaphore_admission_kernel", reps=5)}
+    arr, hold = saturating_trace(rng, 2100)
+    got = sem.AdmissionWindow("cuda", base_window=4096)(arr, hold,
+                                                       capacity=2048)
+    want = sem.AdmissionWindow("cpu", base_window=4096)(arr, hold,
+                                                       capacity=2048)
+    check(all(bits_equal(torch.tensor(np.asarray(x)),
+                         torch.tensor(np.asarray(y)))
+              for x, y in zip(got, want)),
+          "semaphore window plan at K 2048 differs from the plain version")
     # main-path shape: the engine's planning window (64) at capacity 4
     n, cap = 64, SERVE["capacity"]
     arr, hold = admission_trace(rng, n, False)
@@ -566,7 +618,7 @@ def check_semaphore(launch_floor_ms, clock_mhz):
     stage = PlanStaging(torch.device("cuda"), 2 * 32, 3 * 32)
     anatomy = plan_anatomy(
         lambda: stage.run(sem.SEMAPHORE_ADMISSION, (arr[:32], hold[:32]),
-                          32, cap),
+                          32, cap, 0),
         lambda: small(a12, h12, capacity=cap),
         lambda: lib.plan_semaphore(a12, h12, cap, backend="cuda"),
         lambda: lib.plan_semaphore(a12, h12, cap, backend="ref"))
@@ -577,6 +629,7 @@ def check_semaphore(launch_floor_ms, clock_mhz):
         "traces": n_checked, "bit_identical": True, "max_abs_err": 0.0,
         "shape": {"n": n, "capacity": cap}, "ms": ms, "kernel_ms": k_ms,
         "kernel_ms_n64_by_capacity": by_capacity,
+        "past_register_capacity": past,
         "plain_ms": plain_ms, "plain_on": "host (numpy loop)",
         "call_ms": call_ms,
         "call": "AdmissionWindow plan of 40 arrivals on the 64-wide "
@@ -641,8 +694,9 @@ def check_ticket_lock(launch_floor_ms, clock_mhz):
     """Grant order and turn trace exact, the chain bit-equal, error word
     never set, over four seeded permutations at each N {1, 33, 64, 1024,
     4096} (4096: each of the CTA's 32 requester warps serves 128
-    requesters). Timed at N 64 (the kernel benchmark's shape) and
-    1024."""
+    requesters) and one at N 16385 and 32768, past the shared-memory
+    staging. Timed at N 64 (the kernel benchmark's shape) and 1024, and
+    the kernel alone at N 16384 (staged) beside 16385 and 32768."""
     import numpy as np
     import torch
     from repro_torch.kernels import ticket_lock as tl
@@ -668,6 +722,19 @@ def check_ticket_lock(launch_floor_ms, clock_mhz):
                 check(bits_equal(g, w), f"ticket_lock N={n}: {name} "
                       f"differs from the plain version")
             n_checked += 1
+    past = {}
+    for n in (tl.STAGED_N, tl.STAGED_N + 1, 2 * tl.STAGED_N):
+        arr, m, b = inputs(n)
+        if n > tl.STAGED_N:
+            got = tl.ticket_lock(arr, m, b)
+            want = tl.ticket_lock_plain(arr.cpu(), m.cpu(), b.cpu())
+            for g, w, name in zip(got, want, ("grant", "trace", "acc")):
+                check(bits_equal(g, w), f"ticket_lock N={n}: {name} "
+                      f"differs from the plain version")
+            n_checked += 1
+        past[f"n{n}"] = {"kernel_ms": kernel_ms(lambda: tl.ticket_lock(
+            arr, m, b, check=False), "ticket_lock_kernel", reps=3)}
+        tl.TICKET_LOCK.check_pending()
     for n in (64, 1024):
         arr, m, b = inputs(n)
         a_c, m_c, b_c = arr.cpu(), m.cpu(), b.cpu()
@@ -705,7 +772,7 @@ def check_ticket_lock(launch_floor_ms, clock_mhz):
             "call": "ticket_lock_window of 12 requesters on the 32-wide "
                     "window, host clock",
             "plan_anatomy_us_n12": anatomy,
-            "n1024": timing[1024],
+            "n1024": timing[1024], "past_staging": past,
             "launch_floor_ms": launch_floor_ms,
             "chain_estimate_ms": timing[n]["chain_estimate_ms"],
             "chain_estimate": f"{LOCK_STEP_CYCLES} cycles per requester (a "
@@ -749,12 +816,14 @@ def barrier_latency_ms(n, clock_mhz):
 
 def check_xf_barrier(launch_floor_ms, clock_mhz):
     """Every output bit-equal to the plain version and the error word
-    never set, over seeded epochs at N {1, 64, 1024, 4096, MAX_N} with
-    poll budgets {0, 1, 1024}, and everyone present at N 64 and 1024 with
+    never set, over seeded epochs at N {1, 64, 1024, 4096, 32768} and,
+    with the flags in global memory, {32769, 65536}, with poll budgets
+    {0, 1, 1024}, and everyone present at N 64 and 1024 with
     a budget of 0 or 1 fifty times each (a master that scanned before a
     present participant's store would report done = 0 there). Timed at
     N 64 (the kernel benchmark's shape) and 1024, with and without a
-    straggler; the plan call's anatomy at N 12."""
+    straggler; the kernel alone, everyone present, at N 32768 beside
+    32769 and 65536; the plan call's anatomy at N 12."""
     import numpy as np
     import torch
     from repro_torch.kernels import xf_barrier as xb
@@ -762,7 +831,8 @@ def check_xf_barrier(launch_floor_ms, clock_mhz):
     rng = np.random.default_rng(4)
     n_checked = 0
     done_seen = {0: 0, 1: 0}
-    sizes = (1, 64, 1024, 4096, xb.MAX_N)
+    sizes = (1, 64, 1024, 4096, xb.SHARED_N, xb.SHARED_N + 1,
+             2 * xb.SHARED_N)
 
     def same(n, arrive, present, required, epoch, max_polls, what):
         a, p, r = (torch.tensor(x, device="cuda")
@@ -790,6 +860,14 @@ def check_xf_barrier(launch_floor_ms, clock_mhz):
                 done_seen[same(n, 0 * ones, ones, ones, 1, max_polls,
                                "all")] += 1
                 n_checked += 1
+    past = {}
+    for n in (xb.SHARED_N, xb.SHARED_N + 1, 2 * xb.SHARED_N):
+        ones = torch.ones(n, dtype=torch.int32, device="cuda")
+        flags = torch.zeros(n, dtype=torch.int32, device="cuda")
+        past[f"n{n}"] = {"kernel_ms": kernel_ms(lambda: xb.xf_barrier(
+            flags, 1, ones, ones, check=False), "xf_barrier_kernel",
+            reps=5)}
+        xb.XF_BARRIER.check_pending()
     timing = {}
     for n in (64, 1024):
         ones = torch.ones(n, dtype=torch.int32, device="cuda")
@@ -846,7 +924,8 @@ def check_xf_barrier(launch_floor_ms, clock_mhz):
             "call": "xf_barrier_window of 12 participants on the 32-wide "
                     "window, host clock",
             "plan_anatomy_us_n12": anatomy,
-            "n1024": timing[1024], "launch_floor_ms": launch_floor_ms,
+            "n1024": timing[1024], "past_shared_memory": past,
+            "launch_floor_ms": launch_floor_ms,
             "bound_ms": bms, "bound_by": bby, "bytes": nbytes, "ops": 0.0,
             "library_ms": None,
             "library": "none: no PyTorch call computes a barrier epoch"}
@@ -940,13 +1019,23 @@ def make_requests(seed, c, vocab):
 
 
 def make_engine(model, params, c, device, **kw):
+    """The main path's engine (paged, chunked prefill, fused decode,
+    bucketed dispatch) unless ``kw`` overrides its settings."""
     from repro_torch.serve.engine import SlotServeEngine
-    return SlotServeEngine(
-        model, params, capacity=c["capacity"],
-        max_len=c["prompt_max"] + c["new_tokens"] + 1,
-        page_size=c["page_size"], prefill_chunk_tokens=c["prefill_chunk"],
-        decode_chunk=c["decode_chunk"], attention_impl="fused",
-        bucketed_dispatch="on", device=device, **kw)
+    args = dict(capacity=c["capacity"],
+                max_len=c["prompt_max"] + c["new_tokens"] + 1,
+                kv_layout="paged", page_size=c["page_size"],
+                prefill_chunk_tokens=c["prefill_chunk"],
+                decode_chunk=c["decode_chunk"], attention_impl="fused",
+                bucketed_dispatch="on", device=device)
+    args.update(kw)
+    return SlotServeEngine(model, params, **args)
+
+
+#: The reference's default serving path (``--kv-layout slots``, one-shot
+#: prefill): contiguous slot arena, gather-free contiguous decode.
+SLOTS = dict(kv_layout="slots", prefill_chunk_tokens=None,
+             attention_impl="gather", bucketed_dispatch="auto")
 
 
 def serve(engine, prompts, new_tokens):
@@ -968,6 +1057,8 @@ def check_drained(engine, reqs, new_tokens, vocab, what):
           f"{what}: token id out of the vocabulary")
     check(engine.grant_log == sorted(engine.grant_log),
           f"{what}: FIFO grant order violated: {engine.grant_log}")
+    if engine.kv_layout != "paged":
+        return
     try:
         engine.pool.check()
     except AssertionError as e:
@@ -977,12 +1068,16 @@ def check_drained(engine, reqs, new_tokens, vocab, what):
 
 
 def phase_parity(out):
-    """Reduced qwen3-14b, float32, TF32 off: the engine on cuda (CUDA
-    kernels) and on cpu (plain versions), same weights and requests."""
+    """Reduced qwen3-14b, float32, TF32 off: each engine configuration on
+    cuda (CUDA kernels) and on cpu (plain versions), same weights and
+    requests — the main path (paged, chunked, fused, bucketed), the slot
+    arena one-shot and chunked, the paged arena one-shot with eager
+    growth — and the legacy per-request engine on two requests."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models import build_model
     from repro_torch.models.common import tree_map
+    from repro_torch.serve.engine import ServeEngine
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_arch("qwen3-14b").reduced()
@@ -991,23 +1086,46 @@ def phase_parity(out):
     params_gpu = tree_map(lambda t: t.to("cuda"), params_cpu)
     c = REDUCED
     prompts = make_requests(1, c, cfg.vocab_size)
-    runs = {}
+    configs = {
+        "paged_chunked_fused": {},
+        "slots_oneshot": SLOTS,
+        "slots_chunked": dict(SLOTS,
+                              prefill_chunk_tokens=c["prefill_chunk"]),
+        "paged_oneshot_eager": dict(prefill_chunk_tokens=None,
+                                    page_growth="eager"),
+    }
+    res = {}
+    for name, kw in configs.items():
+        runs = {}
+        for dev, params in (("cuda", params_gpu), ("cpu", params_cpu)):
+            eng = make_engine(model, params, c, dev, **kw)
+            reqs, dt = serve(eng, prompts, c["new_tokens"])
+            check_drained(eng, reqs, c["new_tokens"], cfg.vocab_size,
+                          f"reduced {name} {dev}")
+            st = eng.stats()
+            runs[dev] = ({r.rid: r.out_tokens for r in reqs}, eng.grant_log,
+                         st.get("lock_acquires"))
+        check(runs["cuda"][0] == runs["cpu"][0],
+              f"reduced parity {name}: greedy streams differ between cuda "
+              f"and cpu")
+        check(runs["cuda"][1] == runs["cpu"][1],
+              f"reduced parity {name}: grant logs differ between cuda and "
+              f"cpu")
+        check(runs["cuda"][2] == runs["cpu"][2],
+              f"reduced parity {name}: allocator acquire counts differ")
+        res[name] = {"streams_identical": True, "grant_log": runs["cuda"][1],
+                     "lock_acquires": runs["cuda"][2]}
+    legacy = {}
     for dev, params in (("cuda", params_gpu), ("cpu", params_cpu)):
-        eng = make_engine(model, params, c, dev)
-        reqs, dt = serve(eng, prompts, c["new_tokens"])
-        check_drained(eng, reqs, c["new_tokens"], cfg.vocab_size,
-                      f"reduced {dev}")
-        runs[dev] = ({r.rid: r.out_tokens for r in reqs}, eng.grant_log,
-                     eng.pool.pages.lock_stats()["acquires"])
-    check(runs["cuda"][0] == runs["cpu"][0],
-          "reduced parity: greedy streams differ between cuda and cpu")
-    check(runs["cuda"][1] == runs["cpu"][1],
-          "reduced parity: grant logs differ between cuda and cpu")
-    check(runs["cuda"][2] == runs["cpu"][2],
-          "reduced parity: allocator acquire counts differ")
-    return {"requests": c["requests"], "streams_identical": True,
-            "grant_log": runs["cuda"][1],
-            "lock_acquires": runs["cuda"][2]}
+        eng = ServeEngine(model, params,
+                          max_len=c["prompt_max"] + c["new_tokens"] + 1)
+        legacy[dev] = [eng.generate(
+            {"tokens": torch.tensor(p[None], device=dev)},
+            c["new_tokens"]).tokens.cpu().tolist() for p in prompts[:2]]
+    check(legacy["cuda"] == legacy["cpu"],
+          "reduced parity legacy: tokens differ between cuda and cpu")
+    res["legacy_2_requests"] = {"streams_identical": True}
+    return {"requests": c["requests"], "configs": res}
 
 
 def phase_serve(out):
@@ -1057,6 +1175,9 @@ def phase_serve(out):
     st = eng.stats()
     out["launches"] = launches
     out["serve"] = st
+    # phase 7 serves the same requests with these weights
+    out["serve_weights"] = (model, params, prompts,
+                            {r.rid: r.out_tokens for r in reqs})
     return {"arch": cfg.name, "params": n_params, "init_s": init_s,
             "settings": c, "wall_s": dt, "tokens": st["tokens"],
             "tok_per_s": st["tokens"] / dt, "rounds": eng.step_clock,
@@ -1072,14 +1193,115 @@ def phase_serve(out):
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
-def phase_profile(out, warm_rounds: int = 4, rounds: int = 6):
+def phase_slots(out):
+    """Full-width qwen3-14b through the reference's default serving path:
+    ``SlotServeEngine(kv_layout="slots")``, one-shot prefill, decode
+    chunk 2, serving phase 4's 8 requests (capacity 4, the same prompts,
+    16 new tokens) with phase 4's weights; then the legacy per-request
+    loop on the first 2. The launch counters are zeroed just before the
+    slots run and read just after; the share of tokens equal to phase
+    4's paged streams is information (bf16 at full width may flip an
+    argmax tie between the two layouts), not a check."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import ServeEngine
+    cfg = get_arch("qwen3-14b")
+    if "serve_weights" in out:
+        model, params, prompts, paged = out["serve_weights"]
+    else:                      # run without phase 4: the same draw
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                            "cuda")
+        prompts, paged = make_requests(2, SERVE, cfg.vocab_size), None
+    c = SERVE
+    eng = make_engine(model, params, c, "cuda", **dict(SLOTS,
+                                                       decode_chunk=2))
+    counters = _counters()
+    for k in counters.values():
+        k.launches = 0
+    reqs, dt = serve(eng, prompts, c["new_tokens"])
+    launches = {name: k.launches for name, k in counters.items()}
+    check_drained(eng, reqs, c["new_tokens"], cfg.vocab_size,
+                  "full width slots")
+    check(launches["semaphore_admission"] > 0,
+          "semaphore_admission never launched on the slots path")
+    check(eng.grant_log == list(range(c["requests"])),
+          f"full width slots: grant log {eng.grant_log}")
+    st = eng.stats()
+    out["launches_slots"] = launches
+    same = total = first = 0
+    prefix = []
+    if paged is not None:
+        for r in reqs:
+            mine, theirs = r.out_tokens, paged[r.rid]
+            total += len(mine)
+            same += sum(a == b for a, b in zip(mine, theirs))
+            first += int(mine[0] == theirs[0])
+            k = 0
+            while k < len(mine) and mine[k] == theirs[k]:
+                k += 1
+            prefix.append(k)
+    # the legacy loop: one request after the other, batch 1
+    legacy = ServeEngine(model, params,
+                         max_len=c["prompt_max"] + c["new_tokens"] + 1)
+    t0 = time.perf_counter()
+    legacy_tokens = []
+    for p in prompts[:2]:
+        toks = legacy.generate({"tokens": torch.tensor(p[None],
+                                                       device="cuda")},
+                               c["new_tokens"]).tokens
+        legacy_tokens.append(toks.cpu().tolist()[0])
+    torch.cuda.synchronize()
+    legacy_s = time.perf_counter() - t0
+    check(all(len(t) == c["new_tokens"]
+              and all(0 <= x < cfg.vocab_size for x in t)
+              for t in legacy_tokens), "legacy loop: bad token stream")
+    legacy_same = sum(a == b for t, r in zip(legacy_tokens, reqs[:2])
+                      for a, b in zip(t, r.out_tokens))
+    # finite logits of a full-width one-shot prefill
+    logits, cache = model.prefill(
+        params, {"tokens": torch.tensor(prompts[0][None], device="cuda")},
+        max_len=c["prompt_max"] + c["new_tokens"] + 1)
+    check(tuple(logits.shape) == (1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          "full width: prefill logits not finite")
+    del cache
+    return {"arch": cfg.name, "kv_layout": "slots", "prefill": "one-shot",
+            "decode_chunk": 2, "requests": c["requests"],
+            "new_tokens": c["new_tokens"], "wall_s": dt,
+            "tokens": st["tokens"], "tok_per_s": st["tokens"] / dt,
+            "rounds": st["decode_dispatches"], "step_clock": eng.step_clock,
+            "decode_steps": eng.decode_steps_run,
+            "prefill_tokens": st["prefill_tokens"],
+            "pad_tokens": st["pad_tokens"],
+            "decode_rounds_stalled_by_prefill":
+                st["decode_rounds_stalled_by_prefill"],
+            "launches": launches,
+            "p50_wait_steps": st["p50_wait_steps"],
+            "p99_wait_steps": st["p99_wait_steps"],
+            "tokens_equal_to_paged": (same / total) if total else None,
+            "first_tokens_equal_to_paged": first if total else None,
+            "common_prefix_with_paged": prefix,
+            "legacy": {"requests": 2, "wall_s": legacy_s,
+                       "tokens": 2 * c["new_tokens"],
+                       "tok_per_s": 2 * c["new_tokens"] / legacy_s,
+                       "tokens_equal_to_slots": legacy_same
+                       / (2 * c["new_tokens"])},
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def phase_profile(out):
     """Where the time goes at full width (run on request: ``--phases
     1,5``): the phase-4 workload; after ``warm_rounds``, ``rounds``
     scheduler rounds timed on the host clock, then ``rounds`` more under
     ``torch.profiler``. Reports device time by kernel (top 12), the
     paged-decode kernel's share, both wall times, and the idle share
     1 - busy / unprofiled wall (the rounds of both windows are
-    decode-only at this point of the workload)."""
+    decode-only at this point of the workload). ``--profile-layout
+    slots`` profiles phase 7's engine instead (the slot arena, one-shot
+    prefill, decode chunk 2): 1 warm round, then 3 and 3 rounds of
+    two decode steps each, inside the first wave's decode."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_arch
@@ -1089,7 +1311,14 @@ def phase_profile(out, warm_rounds: int = 4, rounds: int = 6):
     params = model.init(torch.Generator(device="cuda").manual_seed(0),
                         "cuda")
     c = SERVE
-    eng = make_engine(model, params, c, "cuda")
+    layout = out.get("profile_layout", "paged")
+    if layout == "slots":
+        eng = make_engine(model, params, c, "cuda",
+                          **dict(SLOTS, decode_chunk=2))
+        warm_rounds, rounds = 1, 3
+    else:
+        eng = make_engine(model, params, c, "cuda")
+        warm_rounds, rounds = 4, 6
     for p in make_requests(2, c, cfg.vocab_size):
         eng.submit(p, c["new_tokens"])
     for _ in range(warm_rounds):
@@ -1127,7 +1356,8 @@ def phase_profile(out, warm_rounds: int = 4, rounds: int = 6):
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
     decode_ms = sum(v for k, v in by_kernel.items()
                     if any(n in k for n in DECODE_KERNELS))
-    return {"rounds": rounds, "decode_steps": window_steps,
+    return {"layout": layout, "rounds": rounds,
+            "decode_steps": window_steps,
             "prefill_chunks": window_chunks,
             "prefill_chunks_unprofiled": chunks_plain,
             "wall_ms_unprofiled": plain_wall_ms,
@@ -1300,23 +1530,37 @@ def kernels_line(out):
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"],
                      "library_ms": k["library_ms"], "shape": k["shape"],
-                     **{key: k[key] for key in ("call_ms", "launch_floor_ms")
-                        if key in k}})
+                     "launches_by_path": {
+                         p: out[key].get(name, 0) for p, key in (
+                             ("serve_paged", "launches"),
+                             ("serve_slots", "launches_slots"),
+                             ("primitives", "launches_primitives"))
+                         if key in out},
+                     **{key: k[key] for key in (
+                         "call_ms", "launch_floor_ms",
+                         "past_register_capacity", "past_staging",
+                         "past_shared_memory") if key in k}})
     return {"kernels": rows, "launches": out.get("launches", {}),
+            "launches_slots": out.get("launches_slots", {}),
             "launches_primitives": out.get("launches_primitives", {}),
             "card": out.get("card")}
 
 
 PHASES = {1: ("card", phase_card), 2: ("kernels", phase_kernels),
           3: ("parity", phase_parity), 4: ("serve", phase_serve),
-          5: ("profile", phase_profile), 6: ("primitives", phase_primitives)}
+          5: ("profile", phase_profile), 6: ("primitives", phase_primitives),
+          7: ("slots", phase_slots)}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,6",
-                    help="comma-separated phases to run (default: 1-4 "
-                         "and 6; 5, the profile, runs only when named)")
+    ap.add_argument("--phases", default="1,2,3,4,6,7",
+                    help="comma-separated phases to run (default: 1-4, 6 "
+                         "and 7; 5, the profile, runs only when named)")
+    ap.add_argument("--profile-layout", default="paged",
+                    choices=("paged", "slots"),
+                    help="the engine phase 5 profiles: the main path "
+                         "(paged) or phase 7's slot arena")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1328,7 +1572,7 @@ def main(argv=None) -> int:
         print(f"[chip_smoke] FAIL: the port is not beside this script "
               f"({e})", file=sys.stderr)
         return 2
-    out = {}
+    out = {"profile_layout": args.profile_layout}
     try:
         for p in sorted(int(x) for x in args.phases.split(",")):
             name, fn = PHASES[p]

@@ -33,6 +33,18 @@
 // lane whose key ties (__ballot_sync + __ffs) replaces its s[0] by
 // release_i through a fixed insertion network of min/max. With K <= 32
 // (the serving engine's K is 4) a lane holds one slot.
+//
+// Above kRegisterCapacity (1024) slots the rows no longer fit in
+// registers. Then lane l owns a contiguous column of ceil(K / 32) slot
+// times in a global scratch buffer the caller allocates (K floats), with
+// the key and position of its column's minimum in registers. The warp
+// step is the same; only the lane that takes release_i touches memory:
+// it stores release_i over its minimum and rescans its own column for
+// the new one (K / 32 loads, all from lines that lane alone writes, so
+// they stay in its SM's L1). No lane reads another's column, so nothing
+// needs a fence. The outputs are those of the register path: the
+// update is order-free.
+//
 // The TPU kernel's padding of N and K to 128 lanes was TPU layout and is
 // gone; the far-future padding of the planning window
 // (semaphore_admission_window) is semantics and stays on the host.
@@ -40,7 +52,7 @@
 
 namespace {
 
-constexpr int kMaxCapacity = 1024;
+constexpr int kRegisterCapacity = 1024;  // slot times in registers
 constexpr float kBig = 3.4e38f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -60,7 +72,7 @@ __device__ __forceinline__ float from_key(unsigned k) {
 
 // s sorted ascending: drop s[0], insert r, keep s sorted.
 template <int S>
-__device__ __forceinline__ void replace_min(float (&s)[S], float r) {
+__device__ __forceinline__ void insert_sorted(float (&s)[S], float r) {
   if constexpr (S == 1) {
     s[0] = r;
   } else {
@@ -74,18 +86,67 @@ __device__ __forceinline__ void replace_min(float (&s)[S], float r) {
   }
 }
 
-// Lane l holds slots l + 32 k, k < S (32 S >= K).
+// Lane l holds slots l + 32 k, k < S (32 S >= K), sorted ascending.
 template <int S>
-__global__ void __launch_bounds__(32) semaphore_admission_kernel(
-    const float* __restrict__ arrive, const float* __restrict__ hold,
-    float* __restrict__ grant, float* __restrict__ release,
-    int* __restrict__ waited, int n, int capacity) {
-  const int lane = threadIdx.x;
-  float s[S];  // all free since t = -inf
+struct RegisterSlots {
+  float s[S];
+  unsigned key;  // order key of s[0], the lane's minimum
+
+  __device__ RegisterSlots(int lane, int capacity) {
 #pragma unroll
-  for (int k = 0; k < S; ++k)
-    s[k] = lane + 32 * k < capacity ? -kBig : pos_inf();
-  unsigned key = order_key(s[0]);
+    for (int k = 0; k < S; ++k)
+      s[k] = lane + 32 * k < capacity ? -kBig : pos_inf();  // free since -inf
+    key = order_key(s[0]);
+  }
+
+  __device__ void replace_min(float r) {
+    insert_sorted(s, r);
+    key = order_key(s[0]);
+  }
+};
+
+// Lane l owns slots [l w, min((l + 1) w, K)) of a global scratch buffer,
+// w = ceil(K / 32); ``at`` is where its minimum sits.
+struct ColumnSlots {
+  float* col;
+  int len, at;
+  unsigned key;
+
+  __device__ ColumnSlots(float* scratch, int lane, int capacity) {
+    const int width = (capacity + 31) / 32;
+    const int lo = min(lane * width, capacity);
+    col = scratch + lo;
+    len = min(lo + width, capacity) - lo;
+    for (int i = 0; i < len; ++i) col[i] = -kBig;
+    at = 0;
+    key = order_key(len > 0 ? -kBig : pos_inf());
+  }
+
+  __device__ void replace_min(float r) {
+    col[at] = r;
+    unsigned best = order_key(col[0]);
+    int where = 0;
+#pragma unroll 8
+    for (int i = 1; i < len; ++i) {
+      const unsigned k = order_key(col[i]);
+      if (k < best) {
+        best = k;
+        where = i;
+      }
+    }
+    key = best;
+    at = where;
+  }
+};
+
+template <class Slots>
+__device__ __forceinline__ void admit(Slots& slots,
+                                      const float* __restrict__ arrive,
+                                      const float* __restrict__ hold,
+                                      float* __restrict__ grant,
+                                      float* __restrict__ release,
+                                      int* __restrict__ waited, int n) {
+  const int lane = threadIdx.x;
   float a_next = lane < n ? arrive[lane] : 0.f;
   float h_next = lane < n ? hold[lane] : 0.f;
   for (int base = 0; base < n; base += 32) {
@@ -103,14 +164,12 @@ __global__ void __launch_bounds__(32) semaphore_admission_kernel(
       if (j >= steps) break;  // uniform over the warp
       const float a = __shfl_sync(kFull, a_l, j);
       const float h = __shfl_sync(kFull, h_l, j);
-      const unsigned kmin = __reduce_min_sync(kFull, key);
+      const unsigned kmin = __reduce_min_sync(kFull, slots.key);
       const float free_t = from_key(kmin);
       const float g = fmaxf(a, free_t);
       const float r = __fadd_rn(g, h);
-      if (lane == __ffs(__ballot_sync(kFull, key == kmin)) - 1) {
-        replace_min(s, r);
-        key = order_key(s[0]);
-      }
+      if (lane == __ffs(__ballot_sync(kFull, slots.key == kmin)) - 1)
+        slots.replace_min(r);
       if (lane == j) {
         g_l = g;
         r_l = r;
@@ -126,6 +185,23 @@ __global__ void __launch_bounds__(32) semaphore_admission_kernel(
 }
 
 template <int S>
+__global__ void __launch_bounds__(32) semaphore_admission_kernel(
+    const float* __restrict__ arrive, const float* __restrict__ hold,
+    float* __restrict__ grant, float* __restrict__ release,
+    int* __restrict__ waited, int n, int capacity) {
+  RegisterSlots<S> slots(threadIdx.x, capacity);
+  admit(slots, arrive, hold, grant, release, waited, n);
+}
+
+__global__ void __launch_bounds__(32) semaphore_admission_kernel_columns(
+    const float* __restrict__ arrive, const float* __restrict__ hold,
+    float* __restrict__ grant, float* __restrict__ release,
+    int* __restrict__ waited, int n, int capacity, float* scratch) {
+  ColumnSlots slots(scratch, threadIdx.x, capacity);
+  admit(slots, arrive, hold, grant, release, waited, n);
+}
+
+template <int S>
 void launch(const float* arrive, const float* hold, float* grant,
             float* release, int* waited, int n, int capacity,
             cudaStream_t stream) {
@@ -134,12 +210,19 @@ void launch(const float* arrive, const float* hold, float* grant,
 }
 
 // The instantiation for ``capacity``: the narrowest power-of-2 slots per
-// lane.
+// lane, or the column kernel above kRegisterCapacity (``scratch``: K
+// floats on the device).
 cudaError_t launch_for(const float* arrive, const float* hold, float* grant,
                        float* release, int* waited, int n, int capacity,
-                       cudaStream_t stream) {
-  if (capacity < 1 || capacity > kMaxCapacity) return cudaErrorInvalidValue;
+                       float* scratch, cudaStream_t stream) {
+  if (capacity < 1) return cudaErrorInvalidValue;
   if (n <= 0) return cudaSuccess;
+  if (capacity > kRegisterCapacity) {
+    if (scratch == nullptr) return cudaErrorInvalidValue;
+    semaphore_admission_kernel_columns<<<1, 32, 0, stream>>>(
+        arrive, hold, grant, release, waited, n, capacity, scratch);
+    return cudaGetLastError();
+  }
   const int per_lane = (capacity + 31) / 32;
   auto* go = per_lane <= 1    ? launch<1>
              : per_lane <= 2  ? launch<2>
@@ -153,26 +236,27 @@ cudaError_t launch_for(const float* arrive, const float* hold, float* grant,
 
 }  // namespace
 
-// Returns a cudaError_t; capacity must be in [1, 1024].
+// Returns a cudaError_t; capacity >= 1. Above 1024, ``scratch`` holds
+// ``capacity`` floats on the device (else it may be null).
 extern "C" int semaphore_admission_launch(const void* arrive,
                                           const void* hold, void* grant,
                                           void* release, void* waited,
                                           int n, int capacity,
-                                          void* stream) {
+                                          void* scratch, void* stream) {
   return (int)launch_for(
       static_cast<const float*>(arrive), static_cast<const float*>(hold),
       static_cast<float*>(grant), static_cast<float*>(release),
-      static_cast<int*>(waited), n, capacity,
+      static_cast<int*>(waited), n, capacity, static_cast<float*>(scratch),
       static_cast<cudaStream_t>(stream));
 }
 
 // One whole plan on ``stream``: copy the packed inputs (arrive | hold,
 // 2n words) from pinned host memory, launch, copy the packed outputs
 // (grant | release | waited, 3n words) back into pinned host memory,
-// synchronise.
+// synchronise. ``scratch`` as for semaphore_admission_launch.
 extern "C" int semaphore_admission_plan(const void* host_in, void* dev_in,
                                         void* dev_out, void* host_out,
-                                        int n, int capacity,
+                                        int n, int capacity, void* scratch,
                                         void* stream_p) {
   const auto stream = static_cast<cudaStream_t>(stream_p);
   cudaError_t err = cudaMemcpyAsync(dev_in, host_in, 2 * (size_t)n * 4,
@@ -181,7 +265,8 @@ extern "C" int semaphore_admission_plan(const void* host_in, void* dev_in,
   const float* in = static_cast<const float*>(dev_in);
   float* out = static_cast<float*>(dev_out);
   err = launch_for(in, in + n, out, out + n,
-                   reinterpret_cast<int*>(out + 2 * n), n, capacity, stream);
+                   reinterpret_cast<int*>(out + 2 * n), n, capacity,
+                   static_cast<float*>(scratch), stream);
   if (err != cudaSuccess) return (int)err;
   err = cudaMemcpyAsync(host_out, dev_out, 3 * (size_t)n * 4,
                         cudaMemcpyDeviceToHost, stream);

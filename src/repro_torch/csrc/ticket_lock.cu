@@ -56,7 +56,11 @@
 // far waiters off the holder's scheduler. The kernel initialises its own words, stages
 // grant and trace in shared memory and stores them coalesced after one
 // __syncthreads, with the chain's bits and the error word behind them
-// in the same int32 output. Every wait keeps the reference's
+// in the same int32 output. Above kStagedN requesters (128 KiB of
+// staging) the holder stores grant and trace straight into the output
+// in global memory instead; the hand-off words stay in shared memory,
+// so only the two stores of each critical section move, and N is bound
+// only by the output's size. Every wait keeps the reference's
 // 1,000,000-poll budget; on expiry the requester sets the error word,
 // every other waiter sees it and leaves, and the host raises.
 #include <cuda/atomic>
@@ -67,7 +71,7 @@ namespace {
 constexpr int kMaxPolls = 1000000;
 constexpr int kMaxWarps = 32;       // requester slots: lane 0 of each warp
 constexpr unsigned kSleepNs = 32;   // back-off per place in line
-constexpr int kMaxN = 16384;  // grant + trace staged: 128 KiB of shared memory
+constexpr int kStagedN = 16384;  // grant + trace staged: 128 KiB of shared memory
 
 using BlockInt = cuda::atomic_ref<int, cuda::thread_scope_block>;
 using BlockFloat = cuda::atomic_ref<float, cuda::thread_scope_block>;
@@ -97,17 +101,21 @@ __device__ bool wait_for(BlockInt word, int want, BlockInt error) {
   }
 }
 
-// out: grant[n], trace[n], acc bits, error word.
+// out: grant[n], trace[n], acc bits, error word. kStaged: grant and
+// trace are staged in shared memory and copied out at the end; else they
+// are written to ``out`` in place.
+template <bool kStaged>
 __global__ void __launch_bounds__(kMaxWarps * 32) ticket_lock_kernel(
     const int* __restrict__ arrival, const float* __restrict__ m,
     const float* __restrict__ b, int* __restrict__ out, int n) {
   extern __shared__ int staged[];  // grant[n], trace[n]
   __shared__ int words[4];         // gate, ticket, turn, error
   __shared__ float acc_word;
+  int* const rec = kStaged ? staged : out;
   const int t = threadIdx.x;
   if (t < 4) words[t] = 0;
   if (t == 0) acc_word = 0.f;
-  for (int i = t; i < 2 * n; i += blockDim.x) staged[i] = -1;
+  for (int i = t; i < 2 * n; i += blockDim.x) rec[i] = -1;
   __syncthreads();
   BlockInt gate(words[0]), ticket(words[1]), turn(words[2]), error(words[3]);
   BlockFloat chain(acc_word);
@@ -123,8 +131,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32) ticket_lock_kernel(
       if (!wait_for(turn, my, error)) break;
       // ---- critical section (ordered after the previous holder's by the
       // acquire fence in wait_for and its release below)
-      staged[my] = rid;
-      staged[n + my] = my;  // the turn the poll observed
+      rec[my] = rid;
+      rec[n + my] = my;  // the turn the poll observed
       const float a = chain.load(cuda::memory_order_relaxed);
       chain.store(__fadd_rn(__fmul_rn(a, mm), bb),
                   cuda::memory_order_relaxed);
@@ -133,7 +141,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32) ticket_lock_kernel(
     }
   }
   __syncthreads();
-  for (int i = t; i < 2 * n; i += blockDim.x) out[i] = staged[i];
+  if (kStaged)
+    for (int i = t; i < 2 * n; i += blockDim.x) out[i] = staged[i];
   if (t == 0) {
     out[2 * n] = __float_as_int(acc_word);
     out[2 * n + 1] = words[3];
@@ -142,24 +151,30 @@ __global__ void __launch_bounds__(kMaxWarps * 32) ticket_lock_kernel(
 
 cudaError_t launch(const int* arrival, const float* m, const float* b,
                    int* out, int n, cudaStream_t stream) {
-  if (n < 0 || n > kMaxN) return cudaErrorInvalidValue;
+  if (n < 0) return cudaErrorInvalidValue;
+  // one warp at least: with n = 0 it still writes acc = 0 and no error
+  const int warps = n < 1 ? 1 : n > kMaxWarps ? kMaxWarps : n;
+  if (n > kStagedN) {
+    ticket_lock_kernel<false><<<1, warps * 32, 0, stream>>>(arrival, m, b,
+                                                             out, n);
+    return cudaGetLastError();
+  }
   const int smem = 2 * n * (int)sizeof(int);
   if (smem > 48 * 1024) {  // above the default only by opting in
     const cudaError_t err = cudaFuncSetAttribute(
-        ticket_lock_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        ticket_lock_kernel<true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
-  // one warp at least: with n = 0 it still writes acc = 0 and no error
-  const int warps = n < 1 ? 1 : n > kMaxWarps ? kMaxWarps : n;
-  ticket_lock_kernel<<<1, warps * 32, smem, stream>>>(arrival, m, b, out, n);
+  ticket_lock_kernel<true><<<1, warps * 32, smem, stream>>>(arrival, m, b,
+                                                           out, n);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Returns a cudaError_t; the error word (out[2n + 1]) is read by the
-// host. n in [0, 16384].
+// host. n >= 0.
 extern "C" int ticket_lock_launch(const void* arrival, const void* m,
                                   const void* b, void* out, int n,
                                   void* stream) {

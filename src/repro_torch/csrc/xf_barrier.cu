@@ -37,8 +37,8 @@
 // What the design does about it: every flag lives in the CTA's shared
 // memory (with one byte of present and required bits beside it), so an
 // arrival is a shared-memory store and a scan reads shared memory, not
-// L2; there is no cooperative launch, and N may reach kMaxN, not only
-// as many CTAs as the card holds at once. The master polls with relaxed
+// L2; there is no cooperative launch, so N is not bound by how many
+// CTAs the card holds at once. The master polls with relaxed
 // block-scope loads and __all_sync, and issues one acquire fence after
 // the hit. Its scan is warp-uniform: a cursor
 // walks the flags in chunks of kChunk words, each lane checking four of
@@ -53,19 +53,29 @@
 // costs nothing here. A thread-block cluster holding the flags in
 // distributed shared memory (participants on several SMs) was not
 // tried: it would lengthen every load of the master's polls, which set
-// the straggler epoch's time, and one CTA already holds kMaxN.
+// the straggler epoch's time, and one CTA already holds kSharedN.
+//
+// Above kSharedN participants (5 bytes each: 160 KiB) the flags are the
+// output's arrive' words in global memory and membership is read from
+// the input; the schedule, the present-flag wait with its guard and the
+// budgeted loop are the same. Every participant and the master are
+// threads of this one CTA, so the flag stores and loads stay block
+// scope (release and relaxed; the SM's L1 is coherent within the CTA),
+// and N is bound only by the buffers' size.
 #include <cuda/atomic>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kMaxThreads = 1024;
-constexpr int kMaxN = 32768;        // 5 bytes each in shared memory: 160 KiB
+constexpr int kSharedN = 32768;     // 5 bytes each in shared memory: 160 KiB
 constexpr int kChunk = 128;         // words one master check reads: 4 a lane
 constexpr int kMaxPolls = 1000000;  // guard of the wait for present flags
 constexpr unsigned kSleepNs = 32;   // back-off between polls
 
 enum : unsigned char { kPresent = 1, kRequired = 2 };
+
+using BlockInt = cuda::atomic_ref<int, cuda::thread_scope_block>;
 
 // Single-owner flag accesses, block scope, on the shared-memory window.
 __device__ __forceinline__ void store_release(int* p, int v) {
@@ -100,37 +110,67 @@ __device__ bool scan(int& base, int n_pad, Met met) {
 
 // in: arrive[n] | present[n] | required[n];
 // out: arrive'[n] | release[n] | stragglers[n] | done | error.
-// Shared: flags[n_pad], then one mask byte each; the padding is neither
-// present nor required.
+// kShared: flags[n_pad] in shared memory, then one mask byte each; the
+// padding is neither present nor required. Else the flags are out[0, n)
+// (the padding's words are in bounds, never present or required, and
+// their values are not used).
+template <bool kShared>
 __global__ void __launch_bounds__(kMaxThreads) xf_barrier_kernel(
     const int* __restrict__ in, int* __restrict__ out, int epoch,
     int max_polls, int n, int n_pad) {
-  extern __shared__ int flags[];
-  unsigned char* mask = reinterpret_cast<unsigned char*>(flags + n_pad);
+  extern __shared__ int smem[];
+  int* const flags = kShared ? smem : out;
+  unsigned char* mask = reinterpret_cast<unsigned char*>(smem + n_pad);
   __shared__ int result[2];  // done, error
   const int t = threadIdx.x, threads = blockDim.x;
+  const auto is_present = [&](int k) -> bool {
+    if constexpr (kShared)
+      return mask[k] & kPresent;
+    else
+      return k < n && in[n + k] > 0;
+  };
+  const auto is_required = [&](int k) -> bool {
+    if constexpr (kShared)
+      return mask[k] & kRequired;
+    else
+      return k < n && in[2 * n + k] > 0;
+  };
+  const auto load = [&](int k) -> int {
+    if constexpr (kShared)
+      return load_relaxed(&flags[k]);
+    else
+      return BlockInt(flags[k]).load(cuda::memory_order_relaxed);
+  };
   // the TPU kernel's step-0 copy: flags of absent slots carry over
-  for (int k = t; k < n_pad; k += threads) {
-    flags[k] = k < n ? in[k] : 0;
-    mask[k] = k < n ? (in[n + k] > 0 ? kPresent : 0) |
-                          (in[2 * n + k] > 0 ? kRequired : 0)
-                    : 0;
+  if constexpr (kShared) {
+    for (int k = t; k < n_pad; k += threads) {
+      flags[k] = k < n ? in[k] : 0;
+      mask[k] = k < n ? (in[n + k] > 0 ? kPresent : 0) |
+                            (in[2 * n + k] > 0 ? kRequired : 0)
+                      : 0;
+    }
+  } else {
+    for (int k = t; k < n; k += threads) flags[k] = in[k];
   }
   __syncthreads();
   // ---- arrive: single-owner release store of my own flag words
   for (int k = t; k < n; k += threads) {
-    if (mask[k] & kPresent) store_release(&flags[k], epoch);
+    if (!is_present(k)) continue;
+    if constexpr (kShared)
+      store_release(&flags[k], epoch);
+    else
+      BlockInt(flags[k]).store(epoch, cuda::memory_order_release);
   }
   // ---- master: the warp that owns participant n - 1
   const int master = n > 0 ? ((n - 1) % threads) >> 5 : 0;
   if ((t >> 5) == master) {
     const auto present_met = [&](int k) {
-      const int f = load_relaxed(&flags[k]);
-      return !(mask[k] & kPresent) | (f == epoch);
+      const int f = load(k);
+      return !is_present(k) | (f == epoch);
     };
     const auto required_met = [&](int k) {
-      const int f = load_relaxed(&flags[k]);
-      return !(mask[k] & kRequired) | (f >= epoch);
+      const int f = load(k);
+      return !is_required(k) | (f >= epoch);
     };
     int base = 0, error = 0;
     for (int polls = 0; !scan(base, n_pad, present_met); ++polls) {
@@ -160,7 +200,7 @@ __global__ void __launch_bounds__(kMaxThreads) xf_barrier_kernel(
   const int done = result[0];
   for (int k = t; k < n; k += threads) {
     const int a = flags[k];
-    const bool req = mask[k] & kRequired;
+    const bool req = is_required(k);
     out[k] = a;
     out[n + k] = (req && done) ? epoch : 0;
     out[2 * n + k] = (req && a < epoch) ? 1 : 0;
@@ -173,27 +213,32 @@ __global__ void __launch_bounds__(kMaxThreads) xf_barrier_kernel(
 
 cudaError_t launch(const int* in, int* out, int epoch, int max_polls, int n,
                    cudaStream_t stream) {
-  if (n < 0 || n > kMaxN || max_polls < 0) return cudaErrorInvalidValue;
+  if (n < 0 || max_polls < 0) return cudaErrorInvalidValue;
   const int n_pad = (n + kChunk - 1) / kChunk * kChunk;
-  const int smem = 5 * n_pad;
-  if (smem > 48 * 1024) {  // above the default only by opting in
-    const cudaError_t err = cudaFuncSetAttribute(
-        xf_barrier_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return err;
-  }
   // one warp at least: with n = 0 it still writes done = 1, no error
   int threads = (n + 31) / 32 * 32;
   threads = threads < 32 ? 32 : threads > kMaxThreads ? kMaxThreads : threads;
-  xf_barrier_kernel<<<1, threads, smem, stream>>>(in, out, epoch, max_polls,
-                                                  n, n_pad);
+  if (n > kSharedN) {
+    xf_barrier_kernel<false><<<1, threads, 0, stream>>>(
+        in, out, epoch, max_polls, n, n_pad);
+    return cudaGetLastError();
+  }
+  const int smem = 5 * n_pad;
+  if (smem > 48 * 1024) {  // above the default only by opting in
+    const cudaError_t err = cudaFuncSetAttribute(
+        xf_barrier_kernel<true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  xf_barrier_kernel<true><<<1, threads, smem, stream>>>(
+      in, out, epoch, max_polls, n, n_pad);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Returns a cudaError_t; the error word (out[3n + 1]) is read by the
-// host. n in [0, 32768].
+// host. n >= 0.
 extern "C" int xf_barrier_launch(const void* in, void* out, int epoch,
                                  int max_polls, int n, void* stream) {
   return (int)launch(static_cast<const int*>(in), static_cast<int*>(out),

@@ -42,16 +42,12 @@ TICKET_LOCK = CudaKernel(
     "ticket_lock.cu", "ticket_lock_launch",
     [_P, _P, _P, _P, _I, _P], plan_argtypes=[_P] * 4 + [_I, _P])
 
-MAX_N = 16384          # grant and trace are staged in shared memory
+#: Up to this many requesters the kernel stages grant and trace in shared
+#: memory; above it, it writes them straight to the output. Any N plans.
+STAGED_N = 16384
 _EXPIRED = "a requester exhausted its 1,000,000-poll budget"
 
 Result = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
-
-
-def _check_size(n: int) -> None:
-    if n > MAX_N:
-        raise ValueError(f"ticket_lock takes at most {MAX_N} requesters "
-                         f"on the card; got {n}")
 
 
 def ticket_lock(arrival: torch.Tensor, m: torch.Tensor, b: torch.Tensor,
@@ -83,7 +79,6 @@ def ticket_lock(arrival: torch.Tensor, m: torch.Tensor, b: torch.Tensor,
             and b.is_contiguous()):
         raise ValueError("ticket_lock needs contiguous inputs")
     n = arrival.shape[0]
-    _check_size(n)
     dev = arrival.device
     out = torch.empty(2 * n + 2, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
@@ -200,7 +195,6 @@ def _plan(arrival, m, b, *, device):
                             (b, np.float32))))
         return g.numpy(), t.numpy(), acc.numpy()
     n = arrival.shape[0]
-    _check_size(n)
     stage = _staging.get((device, n))
     if stage is None:
         stage = _staging.setdefault((device, n),

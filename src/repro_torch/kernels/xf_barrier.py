@@ -9,7 +9,8 @@ own flag word; the master checks the ``required`` slots within a poll
 budget and releases them only if every one arrived:
 
 * :func:`xf_barrier` — CUDA tensors launch the kernel (the participants
-  are threads of one CTA, their flags in its shared memory); CPU tensors
+  are threads of one CTA, their flags in its shared memory up to
+  ``SHARED_N`` participants, in global memory above); CPU tensors
   take the plain version. Returns ``(arrive', release, done,
   stragglers)``, all int32.
 * :func:`xf_barrier_schedule_model` — the kernel's schedule (thread
@@ -42,19 +43,16 @@ XF_BARRIER = CudaKernel(
     "xf_barrier.cu", "xf_barrier_launch", [_P, _P, _I, _I, _I, _P],
     plan_argtypes=[_P] * 4 + [_I, _I, _I, _P])
 
-MAX_N = 32768          # flags and membership bytes in one CTA's shared memory
+#: Up to this many participants the kernel keeps flags and membership
+#: bytes in its CTA's shared memory; above it, the flags are the output's
+#: arrive' words in global memory. Any N plans.
+SHARED_N = 32768
 CHUNK = 128            # flag words one check of the kernel's master reads
 MAX_WAIT_POLLS = 1000000
 _EXPIRED = (f"the master exhausted its {MAX_WAIT_POLLS:,}-poll guard "
             f"waiting for a present participant")
 
 Result = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
-
-
-def _check_size(n: int) -> None:
-    if n > MAX_N:
-        raise ValueError(f"xf_barrier takes at most {MAX_N} participants "
-                         f"on the card; got {n}")
 
 
 def xf_barrier(arrive: torch.Tensor, epoch: int, present: torch.Tensor,
@@ -82,7 +80,6 @@ def xf_barrier(arrive: torch.Tensor, epoch: int, present: torch.Tensor,
         raise ValueError(f"xf_barrier runs on cuda or cpu, not "
                          f"{arrive.device}")
     n = arrive.shape[0]
-    _check_size(n)
     dev = arrive.device
     packed = torch.cat([x.to(torch.int32) for x in (arrive, present,
                                                       required)])
@@ -220,7 +217,6 @@ def _plan(arrive, present, required, *, epoch, max_polls, device):
         return tuple(o.numpy() for o in xf_barrier(a, epoch, p, r,
                                                    max_polls=max_polls))
     n = parts[0].shape[0]
-    _check_size(n)
     stage = _staging.get((device, n))
     if stage is None:
         stage = _staging.setdefault((device, n),

@@ -1,19 +1,26 @@
 """Serving entry point: closed-loop continuous batching behind the
 Algorithm-5 semaphore (counterpart of ``repro.launch.serve``; the open
-loop, legacy loop and chaos mode are not ported yet).
+loop and chaos mode are not ported yet).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
-        --requests 8 --capacity 4 --prompt-len 128 --new-tokens 16
+        --smoke --requests 12 --capacity 4 --prompt-len 16 \\
+        --new-tokens 8 --legacy --device cpu
 
 One engine replica on the card (``--device cuda``, the default; ``--device
-cpu`` runs the kernels' plain versions): a paged KV arena whose page
-allocator runs under the Algorithm-3 ticket mutex, the Algorithm-5
-semaphore kernel replanning admission every scheduler round, chunked
-prefill inside the decode dispatch, and the fused paged-decode kernel.
+cpu`` runs the kernels' plain versions), with the reference launcher's
+defaults: the contiguous slot arena (``--kv-layout slots``), one-shot
+prefill at admission, two decode steps per dispatch, and the
+Algorithm-5 semaphore kernel replanning admission every scheduler
+round. ``--kv-layout paged`` swaps in the block-table page arena, whose
+allocator runs under the Algorithm-3 ticket mutex (``--page-growth``,
+``--page-size``, ``--attention-impl fused`` for the fused paged-decode
+kernel); ``--prefill-chunk-tokens C`` prefills C prompt tokens per round
+inside the decode dispatch instead. ``--legacy`` also runs the old
+per-request loop on the same prompts and prints the comparison.
 Weights are random, drawn on the device from ``--seed``; prompts come
 from a numpy generator seeded the same way. ``--smoke`` serves the
-reduced config. After the drain a hard leak gate fails the run if any
-page is still in use.
+reduced config. After a paged drain a hard leak gate fails the run if
+any page is still in use.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ from repro_torch.configs import get_arch
 from repro_torch.core.abstraction import PrimitiveKind
 from repro_torch.core.device import resolve_device
 from repro_torch.models import build_model
-from repro_torch.serve.engine import SlotServeEngine
+from repro_torch.serve.engine import ServeEngine, SlotServeEngine
 from repro_torch.serve.kv_pages import PageLeakError
 from repro_torch.serve.scheduler import plan_admission
 from repro_torch.sync import SyncLibrary
@@ -47,8 +54,9 @@ def make_engine(model, params, args, device, sync=None) -> SlotServeEngine:
     return SlotServeEngine(
         model, params, capacity=args.capacity,
         max_len=args.prompt_len + args.new_tokens + 1,
-        decode_chunk=args.decode_chunk, page_size=args.page_size,
-        num_pages=args.num_pages,
+        decode_chunk=args.decode_chunk, kv_layout=args.kv_layout,
+        page_size=args.page_size, num_pages=args.num_pages,
+        page_growth=args.page_growth,
         prefill_chunk_tokens=args.prefill_chunk_tokens,
         round_token_budget=args.round_token_budget,
         attention_impl=args.attention_impl,
@@ -59,7 +67,9 @@ def make_engine(model, params, args, device, sync=None) -> SlotServeEngine:
 
 def enforce_leak_gate(engine) -> None:
     """Hard post-drain leak gate: a page still in use after a full drain
-    fails the run with a non-zero exit."""
+    fails the run with a non-zero exit (the slot layout has no pages)."""
+    if engine.kv_layout != "paged":
+        return
     try:
         engine.pool.check()
     except (PageLeakError, AssertionError) as e:
@@ -86,6 +96,25 @@ def run_slot_engine(engine, prompts, new_tokens: int):
     return time.perf_counter() - t0
 
 
+def run_legacy_loop(model, params, prompts, args, device):
+    """The old path: per-request prefill and a Python decode loop, one
+    request after another. Returns (tokens, wall seconds, per-request
+    start offsets in seconds)."""
+    engine = ServeEngine(model, params,
+                         max_len=args.prompt_len + args.new_tokens + 1)
+    t0 = time.perf_counter()
+    waits, tokens = [], 0
+    for prompt in prompts:
+        waits.append(time.perf_counter() - t0)
+        out = engine.generate(
+            {"tokens": torch.from_numpy(np.asarray(prompt))[None].to(device)},
+            args.new_tokens)
+        tokens += int(out.tokens.shape[0] * out.tokens.shape[1])
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return tokens, time.perf_counter() - t0, np.asarray(waits)
+
+
 def make_prompts(args, vocab: int) -> np.ndarray:
     rng = np.random.default_rng(args.seed)
     return rng.integers(0, vocab, size=(args.requests, args.prompt_len),
@@ -102,26 +131,39 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--decode-chunk", type=int, default=2)
+    ap.add_argument("--kv-layout", default="slots",
+                    choices=("slots", "paged"),
+                    help="KV arena layout: contiguous [K, max_len] slots "
+                         "or the block-table page arena")
     ap.add_argument("--page-size", type=int, default=16,
-                    help="tokens per KV page")
+                    help="tokens per KV page (paged layout)")
     ap.add_argument("--num-pages", type=int, default=None,
-                    help="page-arena size (default: capacity * "
-                         "ceil(max_len / page_size))")
-    ap.add_argument("--prefill-chunk-tokens", type=int, default=16,
-                    help="prompt tokens each prefilling slot advances per "
-                         "scheduler round, inside the decode dispatch")
+                    help="page-arena size (paged layout; default: "
+                         "capacity * ceil(max_len / page_size))")
+    ap.add_argument("--page-growth", default="lazy",
+                    choices=("lazy", "eager"),
+                    help="paged layout: grant pages per decode chunk "
+                         "(admission gated by a headroom watermark) or "
+                         "reserve the worst case at admission")
+    ap.add_argument("--prefill-chunk-tokens", type=int, default=None,
+                    help="chunked prefill: prompt tokens each prefilling "
+                         "slot advances per scheduler round, inside the "
+                         "decode dispatch (default: one-shot prefill at "
+                         "admission)")
     ap.add_argument("--round-token-budget", type=int, default=None,
                     help="per-round token budget: decode rows first, then "
                          "prefill chunks (default: every slot funded)")
-    ap.add_argument("--attention-impl", default="fused",
+    ap.add_argument("--attention-impl", default="gather",
                     choices=("gather", "fused"),
-                    help="paged decode read path: the fused paged-decode "
-                         "kernel or gather-then-attend")
+                    help="paged decode read path: gather-then-attend or "
+                         "the fused paged-decode kernel")
     ap.add_argument("--bucketed-dispatch", default="auto",
                     choices=("auto", "on", "off"),
                     help="gather the active slots into power-of-2 "
                          "occupancy buckets per round")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--legacy", action="store_true",
+                    help="also run the old per-request loop")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     return ap
@@ -146,26 +188,35 @@ def main(argv=None) -> SlotServeEngine:
           f"steps p99 {plan.p99_wait:.1f} makespan {plan.makespan:.1f} "
           f"queued {int(plan.waited.sum())}/{args.requests}")
     engine = make_engine(model, params, args, device, sync)
-    dt = run_slot_engine(engine, make_prompts(args, cfg.vocab_size),
-                         args.new_tokens)
+    prompts = make_prompts(args, cfg.vocab_size)
+    dt = run_slot_engine(engine, prompts, args.new_tokens)
     st = engine.stats()
-    print(f"[serve] paged engine: {int(st['finished'])} requests, "
-          f"{int(st['tokens'])} tokens in {dt:.2f}s "
+    print(f"[serve] {args.kv_layout} engine: {int(st['finished'])} "
+          f"requests, {int(st['tokens'])} tokens in {dt:.2f}s "
           f"({st['tokens'] / dt:,.1f} tok/s), "
           f"{int(st['decode_dispatches'])} dispatches, p50 wait "
           f"{st['p50_wait_steps']:.0f} steps p99 {st['p99_wait_steps']:.0f}")
-    print(f"[serve] chunked prefill: {engine.prefill_chunk} tok/chunk, "
-          f"{int(st['prefill_chunks'])} chunks over "
-          f"{int(st['prefill_tokens'])} prompt tokens; attention "
-          f"{engine.attention_impl}, bucketed dispatch "
-          f"{'on' if engine.bucketed_dispatch else 'off'} "
-          f"({int(st['dispatch_shapes'])} shapes)")
-    print(f"[serve] allocator lock: {int(st['lock_acquires'])} acquires "
-          f"({int(st['lock_contended_acquires'])} contended), "
-          f"{st['lock_acquires_per_token']:.4f} per token vs "
-          f"{st['per_page_lock_acquires_per_token']:.4f} one-per-page; "
-          f"{int(st['page_pauses'])} pauses, "
-          f"{int(st['page_preemptions'])} preemptions")
+    if engine.prefill_chunk:
+        print(f"[serve] chunked prefill: {engine.prefill_chunk} tok/chunk, "
+              f"{int(st['prefill_chunks'])} chunks over "
+              f"{int(st['prefill_tokens'])} prompt tokens")
+    else:
+        print(f"[serve] one-shot prefill: {int(st['prefill_tokens'])} "
+              f"prompt tokens, pad fraction {st['pad_fraction']:.3f}, "
+              f"{int(st['decode_rounds_stalled_by_prefill'])} decode "
+              f"rounds stalled by prefill")
+    if engine.kv_layout == "paged":
+        print(f"[serve] paged attention: impl={engine.attention_impl}, "
+              f"bucketed dispatch "
+              f"{'on' if engine.bucketed_dispatch else 'off'} "
+              f"({int(st['dispatch_shapes'])} shapes)")
+        print(f"[serve] allocator lock ({engine.page_growth} growth): "
+              f"{int(st['lock_acquires'])} acquires "
+              f"({int(st['lock_contended_acquires'])} contended), "
+              f"{st['lock_acquires_per_token']:.4f} per token vs "
+              f"{st['per_page_lock_acquires_per_token']:.4f} one-per-page; "
+              f"{int(st['page_pauses'])} pauses, "
+              f"{int(st['page_preemptions'])} preemptions")
     fifo_ok = engine.grant_log == sorted(engine.grant_log)
     print(f"[serve] FIFO grant order: {'OK' if fifo_ok else 'VIOLATED'} "
           f"({len(engine.grant_log)} grants; semaphore admitted "
@@ -174,6 +225,13 @@ def main(argv=None) -> SlotServeEngine:
     enforce_leak_gate(engine)
     if not fifo_ok:
         raise SystemExit(1)
+    if args.legacy:
+        tokens, dt_old, waits = run_legacy_loop(model, params, prompts, args,
+                                                device)
+        print(f"[serve] legacy loop: {tokens} tokens in {dt_old:.2f}s "
+              f"({tokens / dt_old:,.1f} tok/s), p50 wait "
+              f"{np.median(waits):.2f}s p99 {np.percentile(waits, 99):.2f}s")
+        print(f"[serve] slot-engine speedup: {dt_old / dt:.2f}x")
     return engine
 
 

@@ -1,5 +1,6 @@
-"""GQA attention on the paged KV arena: the serving main path's functions
-(counterpart of ``repro.models.attention``).
+"""GQA attention: full-sequence prefill, and decode over the contiguous
+slot cache or the paged KV arena (counterpart of
+``repro.models.attention``).
 
 On one card the reference's head plan is always ``"shard"`` (tensor
 parallelism 1), so query heads are never padded: ``attention_out`` and
@@ -72,6 +73,13 @@ def expand_kv(kv: torch.Tensor, n_heads: int) -> torch.Tensor:
         b, t, kvh * g, hd)
 
 
+def _pick_chunk(s: int, target: int = 1024) -> int:
+    c = min(s, target)
+    while s % c:
+        c -= 1
+    return c
+
+
 # -------------------------------------------------------------- projection
 def qkv_project(p, cfg, x: torch.Tensor, positions: Optional[torch.Tensor]):
     """x [B,S,D] -> q [B,S,H,hd], k/v [B,S,KV,hd] (qk-norm, then rope)."""
@@ -97,6 +105,139 @@ def attention_out(p, y: torch.Tensor, n_heads: int) -> torch.Tensor:
         raise ValueError(f"wo has {p['wo'].shape[0]} heads, the model "
                          f"{n_heads}: head padding has no use on one card")
     return torch.einsum("bshk,hkd->bsd", y, p["wo"])
+
+
+# ----------------------------------------------------- full-sequence paths
+def _pair_list(nq: int, nk: int, cq: int, ck: int, causal: bool,
+               window: Optional[int]):
+    """Static (q_block, kv_block) schedule: only blocks that can attend."""
+    pairs = []
+    for qi in range(nq):
+        if causal:
+            hi = qi + 1
+            lo = 0
+            if window is not None:
+                lo = max(0, (qi * cq - window + 1) // ck)
+            lo = min(lo, hi)
+        else:
+            lo, hi = 0, nk
+        for j in range(lo, hi):
+            pairs.append((qi, j))
+    return pairs
+
+
+def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, window: Optional[int] = None,
+                      q_chunk: int = 1024, kv_chunk: int = 1024
+                      ) -> torch.Tensor:
+    """Online-softmax attention over the static block schedule of
+    :func:`_pair_list` (exact triangle / window work): the reference's
+    ``lax.scan`` over the pairs as a Python loop, with the same float32
+    running max, sum and accumulator per query block (plain torch
+    matmuls, as the reference leaves them to XLA). q [B,S,H,hd];
+    k, v [B,T,H,hd] (already expanded). Returns [B,S,H,hd]."""
+    b, s, h, hd = q.shape
+    t = k.shape[1]
+    cq = _pick_chunk(s, q_chunk)
+    ck = _pick_chunk(t, kv_chunk)
+    nq, nk = s // cq, t // ck
+    scale = 1.0 / math.sqrt(hd)
+    qs = q * scale
+    dev = q.device
+    iota_q = torch.arange(cq, device=dev)
+    iota_k = torch.arange(ck, device=dev)
+    m = [torch.full((b, cq, h), NEG_INF, dtype=torch.float32, device=dev)
+         for _ in range(nq)]
+    l = [torch.zeros((b, cq, h), dtype=torch.float32, device=dev)
+         for _ in range(nq)]
+    acc = [torch.zeros((b, cq, h, hd), dtype=torch.float32, device=dev)
+           for _ in range(nq)]
+    for qi, j in _pair_list(nq, nk, cq, ck, causal, window):
+        qb = qs[:, qi * cq:(qi + 1) * cq]
+        # the reference's dynamic_slice clamps the start into the keys
+        # (a causal pair past the last key block when cq < ck); the mask
+        # below keeps the unclamped positions, so such a block adds 0
+        k0 = min(j * ck, t - ck)
+        kc = k[:, k0:k0 + ck]
+        vc = v[:, k0:k0 + ck]
+        sc = torch.einsum("bqhd,bchd->bqhc", qb, kc).float()
+        if causal:
+            qpos = qi * cq + iota_q
+            kpos = j * ck + iota_k
+            ok = kpos[None, :] <= qpos[:, None]
+            if window is not None:
+                ok &= kpos[None, :] > qpos[:, None] - window
+            sc = torch.where(ok[None, :, None, :], sc,
+                             torch.full_like(sc, NEG_INF))
+        m_new = torch.maximum(m[qi], sc.amax(dim=-1))
+        p = torch.exp(sc - m_new[..., None])
+        alpha = torch.exp(m[qi] - m_new)
+        l[qi] = l[qi] * alpha + p.sum(dim=-1)
+        pv = torch.einsum("bqhc,bchd->bqhd", p.to(v.dtype), vc)
+        acc[qi] = acc[qi] * alpha[..., None] + pv.float()
+        m[qi] = m_new
+    out = torch.cat([a / torch.clamp(li[..., None], min=1e-37)
+                     for a, li in zip(acc, l)], dim=1)
+    return out.to(q.dtype)
+
+
+def full_attention(p, cfg, q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor, *, causal: bool,
+                   window: Optional[int]) -> torch.Tensor:
+    """Full-sequence attention, [B,S,H,hd] before ``wo``. On one card the
+    reference's head plan is ``"shard"``, so this is its
+    expand-then-:func:`blocked_attention` path (the ``"seq"`` plan's
+    kernels belong to tensor parallelism)."""
+    h = cfg.num_heads
+    return blocked_attention(q, expand_kv(k, h), expand_kv(v, h),
+                             causal=causal, window=window)
+
+
+# ------------------------------------------------------- contiguous writes
+class RowWritePlan(NamedTuple):
+    """Where the live lanes of a contiguous-cache write land: ``rows``
+    and ``lanes`` index the written values, ``pos`` the time position
+    of each in its row."""
+    rows: torch.Tensor
+    lanes: torch.Tensor
+    pos: torch.Tensor
+
+
+def row_write_plan(pos: torch.Tensor, max_len: int) -> RowWritePlan:
+    """Plan a write of one value per ``pos`` entry (``pos`` [B] or
+    [B, C], time positions in row b of a contiguous ``[B, max_len, ...]``
+    cache). Positions outside ``[0, max_len)`` are left out — the
+    masked form of the reference's ``.at[rows, pos].set(...,
+    mode="drop")``: a retired slot drifting past ``max_len`` and the
+    engine's ``_DROP_POS`` lanes write nothing. The plan depends only on
+    the positions, so one plan serves every layer and both k and v."""
+    pos2 = pos.long() if pos.dim() == 2 else pos.long()[:, None]
+    live = (pos2 >= 0) & (pos2 < max_len)
+    rows, lanes = torch.nonzero(live, as_tuple=True)
+    return RowWritePlan(rows, lanes, pos2[rows, lanes])
+
+
+def scatter_rows(cache: torch.Tensor, plan: RowWritePlan,
+                 val: torch.Tensor) -> torch.Tensor:
+    """Write ``val[b, c]`` ([B, C, ...]; C = 1 for a decode step) at the
+    plan's live lanes of the contiguous cache, in place. Returns the
+    cache."""
+    cache[plan.rows, plan.pos] = val[plan.rows, plan.lanes].to(cache.dtype)
+    return cache
+
+
+def update_slice(cache: torch.Tensor, start: torch.Tensor,
+                 val: torch.Tensor) -> torch.Tensor:
+    """``lax.dynamic_update_slice_in_dim(cache, val, start, axis=1)`` in
+    place: the start is clamped so the update fits (at ``start >= T - S``
+    the last ``S`` positions are overwritten; nothing drops). ``start``
+    stays on the device, so the write needs no host round trip. Returns
+    the cache."""
+    s, t = val.shape[1], cache.shape[1]
+    t0 = torch.clamp(torch.as_tensor(start, device=cache.device).long(),
+                     0, t - s)
+    idx = t0.reshape(1) + torch.arange(s, device=cache.device)
+    return cache.index_copy_(1, idx, val.to(cache.dtype))
 
 
 # -------------------------------------------------------------- paged I/O

@@ -1,10 +1,11 @@
-"""Transformer block wiring for the serving main path: pre-norm paged
-attention + pre-norm dense FFN (counterpart of ``repro.models.blocks``).
-Mamba and MoE blocks are not ported yet."""
+"""Transformer block wiring: pre-norm attention + pre-norm dense FFN, over
+the full sequence, the contiguous slot cache or the paged arena
+(counterpart of ``repro.models.blocks``). Mamba and MoE blocks are not
+ported yet."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -36,52 +37,104 @@ def _ffn(p, x, cfg):
                    cfg.activation)
 
 
-def block_decode(p, x: torch.Tensor, cache: Dict, cache_len: torch.Tensor,
-                 cfg, kind: str, use_moe: bool, pages: torch.Tensor,
-                 attn_impl: str = "gather",
-                 write_plan: Optional[attn.PageWritePlan] = None
-                 ) -> Tuple[torch.Tensor, Dict]:
-    """One-token pass against the paged cache. x [B,1,D]; ``cache_len``
-    [B] per-row lengths; ``pages`` [B,P] block table. The new token's
-    K/V is written at flat position ``cache_len[b]`` (in place; lanes
-    past the table or on sentinel pages drop), then attention reads
-    ``cache_len + 1`` positions. ``write_plan`` (from
-    :func:`attention.page_write_plan`) may be shared by every layer."""
+def block_forward(p, x: torch.Tensor, cfg, kind: str, use_moe: bool,
+                  positions: torch.Tensor) -> Tuple[torch.Tensor, Dict, Dict]:
+    """Full-sequence pass (causal). x [B,S,D]; ``positions`` [B,S].
+    Returns (x, cache entry ``{"k", "v"}`` [B,S,KV,hd], aux {})."""
     _require_ported(cfg, kind, use_moe)
-    if pages is None:
-        raise ValueError("the contiguous cache layout is not ported yet")
-    if cache_len.dim() != 1:
-        raise ValueError("paged decode requires per-row [B] lens")
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    q, k, v = attn.qkv_project(p["mixer"], cfg, h, cache_len[:, None])
-    if write_plan is None:
-        write_plan = attn.page_write_plan(
-            pages, cache_len, cache["k"].shape[0], cache["k"].shape[1])
-    attn.scatter_planned(cache["k"], write_plan, k[:, 0])
-    attn.scatter_planned(cache["v"], write_plan, v[:, 0])
-    y = attn.paged_decode_attention(
-        p["mixer"], cfg, q, cache["k"], cache["v"], pages, cache_len + 1,
-        window=window_for(cfg, kind), impl=attn_impl)
+    q, k, v = attn.qkv_project(p["mixer"], cfg, h, positions)
+    y = attn.full_attention(p["mixer"], cfg, q, k, v, causal=True,
+                            window=window_for(cfg, kind))
+    x = x + attn.attention_out(p["mixer"], y, cfg.num_heads)
+    return _ffn(p, x, cfg), {"k": k, "v": v}, {}
+
+
+WritePlan = Union[attn.PageWritePlan, attn.RowWritePlan]
+
+
+def block_decode(p, x: torch.Tensor, cache: Dict, cache_len: torch.Tensor,
+                 cfg, kind: str, use_moe: bool,
+                 pages: Optional[torch.Tensor] = None,
+                 attn_impl: str = "gather",
+                 write_plan: Optional[WritePlan] = None
+                 ) -> Tuple[torch.Tensor, Dict]:
+    """One-token pass. x [B,1,D]. The new token's K/V is written in place
+    at position ``cache_len`` (per row), then attention reads
+    ``cache_len + 1`` positions.
+
+    ``pages`` None: the contiguous ``[B, T, KV, hd]`` cache. A ``[B]``
+    ``cache_len`` (slot serving) writes row b at ``cache_len[b]``, and a
+    row past ``T`` (a retired slot drifting) drops its write; a scalar
+    ``cache_len`` (the legacy engine) writes every row at one position,
+    clamped into the cache as ``dynamic_update_slice`` does.
+
+    ``pages`` [B,P]: the paged arena; ``cache_len`` must be [B]. Lanes
+    past the table or on sentinel pages drop. ``attn_impl`` picks the
+    paged read path. ``write_plan`` (from
+    :func:`attention.page_write_plan`, or for [B] lengths on the
+    contiguous cache :func:`attention.row_write_plan`) may be shared by
+    every layer."""
+    _require_ported(cfg, kind, use_moe)
+    cl = torch.as_tensor(cache_len, device=x.device)
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    positions = (cl[:, None] if cl.dim() == 1
+                 else cl.reshape(1, 1).expand(x.shape[0], 1))
+    q, k, v = attn.qkv_project(p["mixer"], cfg, h, positions)
+    if pages is not None:
+        if cl.dim() != 1:
+            raise ValueError("paged decode requires per-row [B] lens")
+        if write_plan is None:
+            write_plan = attn.page_write_plan(
+                pages, cl, cache["k"].shape[0], cache["k"].shape[1])
+        attn.scatter_planned(cache["k"], write_plan, k[:, 0])
+        attn.scatter_planned(cache["v"], write_plan, v[:, 0])
+        y = attn.paged_decode_attention(
+            p["mixer"], cfg, q, cache["k"], cache["v"], pages, cl + 1,
+            window=window_for(cfg, kind), impl=attn_impl)
+    else:
+        if cl.dim() == 1:
+            if write_plan is None:
+                write_plan = attn.row_write_plan(cl, cache["k"].shape[1])
+            attn.scatter_rows(cache["k"], write_plan, k)
+            attn.scatter_rows(cache["v"], write_plan, v)
+        else:
+            attn.update_slice(cache["k"], cl, k)
+            attn.update_slice(cache["v"], cl, v)
+        y = attn.cached_decode_attention(
+            p["mixer"], cfg, q, cache["k"], cache["v"], cl + 1,
+            window=window_for(cfg, kind))
     x = x + attn.attention_out(p["mixer"], y, cfg.num_heads)
     return _ffn(p, x, cfg), cache
 
 
 def block_prefill_chunk(p, x: torch.Tensor, cache: Dict, cfg, kind: str,
                         use_moe: bool, positions: torch.Tensor,
-                        write_pos: torch.Tensor, pages: torch.Tensor,
-                        write_plan: Optional[attn.PageWritePlan] = None
+                        write_pos: torch.Tensor,
+                        pages: Optional[torch.Tensor] = None,
+                        write_plan: Optional[WritePlan] = None
                         ) -> Tuple[torch.Tensor, Dict]:
     """Chunked-prefill pass: C prompt tokens per row. x [B,C,D];
     ``positions`` [B,C] drive rope and the causal mask; ``write_pos``
     [B,C] are where their K/V land — equal to ``positions`` except on
-    lanes the engine parks at its drop sentinel. K/V are written before
-    attention reads the cache (scatter-then-attend), so the result does
-    not depend on how the prompt was chunked."""
+    lanes the engine parks at its drop sentinel, which write nothing in
+    either layout (``pages`` None: the contiguous cache). K/V are
+    written before attention reads the cache (scatter-then-attend), so
+    the result does not depend on how the prompt was chunked."""
     _require_ported(cfg, kind, use_moe)
-    if pages is None:
-        raise ValueError("the contiguous cache layout is not ported yet")
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     q, k, v = attn.qkv_project(p["mixer"], cfg, h, positions)
+    window = window_for(cfg, kind)
+    if pages is None:
+        if write_plan is None:
+            write_plan = attn.row_write_plan(write_pos, cache["k"].shape[1])
+        attn.scatter_rows(cache["k"], write_plan, k)
+        attn.scatter_rows(cache["v"], write_plan, v)
+        y = attn.cached_chunk_attention(
+            p["mixer"], cfg, q, cache["k"], cache["v"], positions,
+            window=window)
+        x = x + attn.attention_out(p["mixer"], y, cfg.num_heads)
+        return _ffn(p, x, cfg), cache
     if write_plan is None:
         write_plan = attn.page_write_plan(
             pages, write_pos, cache["k"].shape[0], cache["k"].shape[1])
@@ -89,7 +142,7 @@ def block_prefill_chunk(p, x: torch.Tensor, cache: Dict, cfg, kind: str,
     attn.scatter_planned(cache["v"], write_plan, v)
     y = attn.paged_chunk_attention(
         p["mixer"], cfg, q, cache["k"], cache["v"], pages, positions,
-        window=window_for(cfg, kind))
+        window=window)
     x = x + attn.attention_out(p["mixer"], y, cfg.num_heads)
     return _ffn(p, x, cfg), cache
 

@@ -1,23 +1,29 @@
-"""Decoder-only language model, serving paths (counterpart of
+"""Decoder-only language model, inference paths (counterpart of
 ``repro.models.lm.LM``).
 
 Parameters keep the reference's tree: ``embed/tokens``,
 ``periods/layer_<j>/...`` stacked over the periods on a leading axis,
 ``leftover/layer_<j>/...`` for remainder layers, ``final_norm``, and
 ``lm_head`` when embeddings are untied. The reference scans over the
-stacked periods; here a Python loop indexes the leading axis. The
-paged cache mirrors the reference's cache tree: ``periods/layer_<j>/k``
-is a ``[n_periods, num_pages, ps, KV, hd]`` arena, updated in place by
-the layers, plus the engine-owned ``len`` [B] vector and ``pages``
-[B, P] block table.
+stacked periods; here a Python loop indexes the leading axis. The cache
+mirrors the reference's cache tree, in one of two layouts, updated in
+place by the layers:
 
-Ported: ``init_cache``, ``prefill_chunk`` and ``decode_step``. One-shot
-``prefill``, ``forward`` and ``loss_fn`` are not ported yet.
+* contiguous — ``periods/layer_<j>/k`` is ``[n_periods, B, max_len, KV,
+  hd]`` (one row per slot or sequence) plus ``len``: a scalar (the
+  legacy engine, every row at one depth) or a ``[B]`` vector (slot
+  serving);
+* paged — ``[n_periods, num_pages, ps, KV, hd]`` arenas plus the
+  engine-owned ``len`` [B] vector and ``pages`` [B, P] block table.
+
+Ported: ``forward``, one-shot ``prefill`` (with and without ``length=``),
+``init_cache``, ``prefill_chunk`` and ``decode_step``. ``loss_fn`` goes
+with training and is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -99,9 +105,11 @@ class LM:
                    kind, use_moe)
 
     def _arena_shape(self, cache: Tree) -> Tuple[int, int]:
+        """(num_pages, page_size) of a paged arena, (B, max_len) of a
+        contiguous cache."""
         k = cache["periods"]["layer_0"]["k"] if self.n_periods else \
             cache["leftover"]["layer_0"]["k"]
-        return k.shape[-4], k.shape[-3]        # num_pages, page_size
+        return k.shape[-4], k.shape[-3]
 
     def _embed(self, params: Tree, tokens: torch.Tensor) -> torch.Tensor:
         x = embed(params["embed"], tokens).to(self.cfg.dtype)
@@ -114,19 +122,109 @@ class LM:
             return unembed(params["embed"], None, x, tie=True)
         return unembed(None, params["lm_head"], x, tie=False)
 
+    # ------------------------------------------------------------- forward
+    def forward(self, params: Tree, batch: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, Dict]:
+        """Full-sequence forward over ``batch["tokens"]`` [B,S]. Returns
+        (logits [B,S,V], aux {})."""
+        x, _ = self._backbone(params, batch["tokens"], want_cache=False)
+        return self._unembed(params, x), {}
+
+    def _backbone(self, params: Tree, tokens: torch.Tensor, *,
+                  want_cache: bool) -> Tuple[torch.Tensor, Optional[Tree]]:
+        """Embed, every layer in depth order (causal, positions 0..S-1),
+        final norm. With ``want_cache`` also the per-layer K/V
+        ``[n_periods, B, S, KV, hd]`` (leftover layers unstacked)."""
+        cfg = self.cfg
+        x = self._embed(params, tokens)
+        b, s = tokens.shape
+        positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+        periods = {f"layer_{j}": [] for j in range(len(self.layout))}
+        for i in range(self.n_periods):
+            for j, (kind, use_moe) in enumerate(self.layout):
+                name = f"layer_{j}"
+                p = tree_map(lambda a: a[i], params["periods"][name])
+                x, c, _ = blocks.block_forward(p, x, cfg, kind, use_moe,
+                                               positions)
+                if want_cache:
+                    periods[name].append(c)
+        leftover = {}
+        for j in range(len(self.leftover)):
+            kind, use_moe = self.layout[j]
+            name = f"layer_{j}"
+            x, c, _ = blocks.block_forward(params["leftover"][name], x, cfg,
+                                           kind, use_moe, positions)
+            leftover[name] = c
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        if not want_cache:
+            return x, None
+        stacked = {name: {n: torch.stack([c[n] for c in cs])
+                          for n in ("k", "v")}
+                   for name, cs in periods.items() if cs}
+        return x, {"periods": stacked, "leftover": leftover}
+
     # ------------------------------------------------------------- serving
+    def prefill(self, params: Tree, batch: Dict[str, torch.Tensor], *,
+                max_len: Optional[int] = None,
+                length: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Tree]:
+        """Run the prompt ``batch["tokens"]`` [B,S] and build the
+        contiguous cache. Returns (last logits [B,V], cache).
+
+        Without ``length`` the logits are position S-1's and ``len`` is
+        the scalar S. With ``length`` ([B], right-padded prompts) they are
+        position ``clip(length - 1, 0, S - 1)``'s per row and ``len`` is
+        that vector, so decode attends only to real tokens. K/V are
+        zero-padded on the time axis to ``max_len`` (default S)."""
+        tokens = batch["tokens"]
+        x, cache = self._backbone(params, tokens, want_cache=True)
+        s = tokens.shape[1]
+        if length is None:
+            logits = self._unembed(params, x[:, -1:, :])[:, 0]
+            ln = torch.tensor(s, dtype=torch.int32, device=x.device)
+        else:
+            ln = torch.as_tensor(length, device=x.device).to(torch.int32)
+            rows = torch.arange(x.shape[0], device=x.device)
+            x_last = x[rows, torch.clamp(ln.long() - 1, 0, s - 1)]
+            logits = self._unembed(params, x_last[:, None, :])[:, 0]
+        cache = self._pad_cache(cache, s, max_len or s)
+        cache["len"] = ln
+        return logits, cache
+
+    @staticmethod
+    def _pad_cache(cache: Tree, s: int, max_len: int) -> Tree:
+        """Zero-pad every k/v leaf's time axis (``ndim - 3``: after the
+        stacked-period and batch axes) from ``s`` to ``max_len``."""
+        if max_len < s:
+            raise ValueError(f"max_len {max_len} is shorter than the "
+                             f"prompt ({s})")
+
+        def pad(a):
+            t_axis = a.dim() - 3
+            shape = list(a.shape)
+            shape[t_axis] = max_len - s
+            return torch.cat([a, a.new_zeros(shape)], dim=t_axis)
+
+        return {"periods": tree_map(pad, cache["periods"]),
+                "leftover": tree_map(pad, cache["leftover"])}
+
     def prefill_chunk(self, params: Tree, cache: Tree, tokens: torch.Tensor,
                       positions: torch.Tensor, write_pos: torch.Tensor
                       ) -> Tuple[torch.Tensor, Tree]:
-        """One chunk of chunked prefill against the paged cache. Returns
-        (logits [B,C,V], cache). ``tokens``/``positions``/``write_pos``
-        are [B,C]; lanes whose ``write_pos`` is out of the table (the
-        engine's drop sentinel) write nothing. ``len`` does not advance —
-        the prefill cursor is engine state."""
+        """One chunk of chunked prefill against the cache (paged when it
+        carries ``pages``, else contiguous). Returns (logits [B,C,V],
+        cache). ``tokens``/``positions``/``write_pos`` are [B,C]; lanes
+        whose ``write_pos`` is out of the table or the row (the engine's
+        drop sentinel) write nothing. ``len`` does not advance — the
+        prefill cursor is engine state."""
         cfg = self.cfg
-        pages = cache["pages"]
-        num_pages, ps = self._arena_shape(cache)
-        plan = attn.page_write_plan(pages, write_pos, num_pages, ps)
+        pages = cache.get("pages")
+        if pages is not None:
+            plan = attn.page_write_plan(pages, write_pos,
+                                        *self._arena_shape(cache))
+        else:
+            plan = attn.row_write_plan(write_pos,
+                                       self._arena_shape(cache)[1])
         x = self._embed(params, tokens)
         for p, c, kind, use_moe in self._layers(params, cache):
             x, _ = blocks.block_prefill_chunk(
@@ -137,18 +235,20 @@ class LM:
 
     def decode_step(self, params: Tree, cache: Tree, tokens: torch.Tensor, *,
                     attn_impl: str = "gather") -> Tuple[torch.Tensor, Tree]:
-        """One decode step over the paged cache. ``tokens`` [B]. Returns
-        (logits [B,V], cache with ``len + 1``). ``attn_impl`` picks the
-        paged read path (``"gather"`` or ``"fused"``)."""
+        """One decode step. ``tokens`` [B]. Returns (logits [B,V], cache
+        with ``len + 1``). A cache with ``pages`` takes the paged path,
+        where ``attn_impl`` picks the read (``"gather"`` or ``"fused"``);
+        otherwise the contiguous one, at a scalar or per-row ``len``."""
         cfg = self.cfg
         cache_len = cache["len"]
         pages = cache.get("pages")
-        if pages is None:
-            raise ValueError("decode_step needs the paged cache "
-                             "(cache['pages']); the contiguous layout is "
-                             "not ported yet")
-        num_pages, ps = self._arena_shape(cache)
-        plan = attn.page_write_plan(pages, cache_len, num_pages, ps)
+        plan = None               # one write plan serves every layer
+        if pages is not None:
+            plan = attn.page_write_plan(pages, cache_len,
+                                        *self._arena_shape(cache))
+        elif cache_len.dim() == 1:
+            plan = attn.row_write_plan(cache_len,
+                                       self._arena_shape(cache)[1])
         x = self._embed(params, tokens[:, None])
         for p, c, kind, use_moe in self._layers(params, cache):
             x, _ = blocks.block_decode(p, x, c, cache_len, cfg, kind,

@@ -1,41 +1,50 @@
-"""Slot-based continuous batching behind the Algorithm-5 semaphore
-(counterpart of ``repro.serve.engine.SlotServeEngine``, the serving
-main path's configuration).
+"""Serving engines: the legacy per-request loop and slot-based continuous
+batching behind the Algorithm-5 semaphore (counterpart of
+``repro.serve.engine``: ``ServeEngine`` and ``SlotServeEngine``).
 
-One engine replica owns K slots over a paged KV arena
-(``serve/kv_pages.py``) and runs scheduler rounds:
+``ServeEngine`` is the reference's baseline: one whole-prompt prefill,
+then a Python decode loop over the batch (greedy), no slot reuse and no
+admission. ``SlotServeEngine`` owns K slots over a KV arena — the
+contiguous ``[K, max_len]`` slot layout (``serve/kv_slots.py``, the
+reference's default) or the paged arena (``serve/kv_pages.py``) — and
+runs scheduler rounds:
 
   * **admission** — the library's windowed Algorithm-5 planner (the
     CUDA semaphore kernel on a card) is replanned every round over the
     in-flight holds plus the queued front; a queued request is admitted
     iff the timeline grants it with ``waited == 0`` *now*. The host
     ``AdmissionController`` (a live sleeping semaphore) is the occupancy
-    gate and ``grant_log`` records the FIFO grant order. Admission is
-    bookkeeping only (chunked prefill): a slot, pages for the first
-    chunk(s) under one ticket-mutex critical section, and a cursor;
-  * **page prep** — lazy growth: one critical section tops up every
-    decoding slot and every planned chunk; a starved slot pauses for the
-    round, and if nobody can advance the youngest grant is preempted
+    gate and ``grant_log`` records the FIFO grant order. One-shot
+    admission (the default) prefills each granted prompt, right-padded
+    to a power-of-2 bucket, and inserts its cache into the slot (paged:
+    pages for the whole batch granted in one ticket-mutex critical
+    section). Chunked admission (``prefill_chunk_tokens``) is
+    bookkeeping only: a slot, pages for the first chunk(s), a cursor;
+  * **page prep** (paged) — eager growth reserved every page at
+    admission; lazy growth tops up every decoding slot and every
+    planned chunk in one critical section, a starved slot pauses for
+    the round, and if nobody can advance the youngest grant is preempted
     back to the queue (greedy decoding regenerates its stream);
-  * **dispatch** — ``decode_chunk`` decode steps over the active rows
-    (gathered into a power-of-2 bucket when bucketed dispatch is on),
-    *then* a ``C``-token prefill chunk for the FIFO-oldest prefilling
-    rows. The order matters: a prefilling row's frozen decode steps
-    write scratch K/V where the chunk writes, so the chunk must land
-    after them;
-  * **retirement** — every finished row's pages return in one
-    ``free_batch``.
+  * **dispatch** — ``decode_chunk`` decode steps over the rows
+    (paged: gathered into a power-of-2 bucket when bucketed dispatch is
+    on), *then*, chunked, a ``C``-token prefill chunk for the
+    FIFO-oldest prefilling rows. The order matters: a prefilling row's
+    frozen decode steps write scratch K/V where the chunk writes, so the
+    chunk must land after them;
+  * **retirement** — every finished row leaves its slot (paged: every
+    row's pages return in one ``free_batch``).
 
 Decoding is greedy. Outside this slice — and raising "not ported yet"
-at construction rather than silently dropping anything: the contiguous
-slot layout, one-shot prefill, sampling, eager page growth, prefix
-sharing, the prefix cache, fault injection, cancellation and deadlines.
+at construction rather than silently dropping anything: sampling,
+prefix sharing and the prefix cache (which the reference turns on for
+the paged layout), fault injection, cancellation and deadlines.
 
-The reference relies on JAX's dropping scatters at three places; the
-port masks lanes out *before* each scatter instead: the ``_DROP_POS``
-write sentinel and sentinel pages (``models.attention.page_write_plan``)
-and the bucket round's scatter-back to row ``K`` (only live bucket lanes
-are written back, see ``_bucket_round``).
+The reference relies on JAX's dropping scatters; the port masks lanes
+out *before* each scatter instead: the ``_DROP_POS`` write sentinel and
+sentinel pages (``models.attention.page_write_plan``), retired slot rows
+past ``max_len`` (``models.attention.scatter_rows``) and the bucket
+round's scatter-back to row ``K`` (only live bucket lanes are written
+back, see ``_bucket_round``).
 """
 
 from __future__ import annotations
@@ -52,15 +61,64 @@ import torch
 from repro_torch.core.device import resolve_device
 from repro_torch.serve.dispatch import DecodeDispatchCache
 from repro_torch.serve.kv_pages import PagedSlotPool
+from repro_torch.serve.kv_slots import SlotPool
 from repro_torch.serve.scheduler import (AdmissionController,
                                          allocator_contention, plan_round)
 from repro_torch.sync import SyncLibrary
 
 #: Write-drop sentinel for chunked prefill: pad lanes of a partial last
 #: chunk and rows not advancing this round carry it as their write
-#: position. Large and positive — past any block table, so the masked
-#: scatter leaves it out.
+#: position. Large and positive — past any block table and any slot
+#: row, so the masked scatter leaves it out.
 _DROP_POS = 2 ** 30
+
+
+def _not_ported(what: str):
+    raise ValueError(f"{what} is not ported yet")
+
+
+@dataclasses.dataclass
+class GenerationResult:
+    tokens: torch.Tensor          # [B, n_generated]
+    logprobs: Optional[torch.Tensor] = None
+
+
+class ServeEngine:
+    """Legacy engine: one whole-prompt prefill, then a per-step Python
+    decode loop over the batch (no slot reuse, no admission). Greedy;
+    runs on the device ``params`` live on."""
+
+    def __init__(self, model, params, *, max_len: int = 256,
+                 temperature: float = 0.0):
+        if temperature > 0.0:
+            _not_ported("sampling (temperature > 0)")
+        self.model = model
+        self.params = params
+        self.max_len = max_len
+        self.temperature = temperature
+
+    def prefill(self, batch: Dict[str, torch.Tensor]):
+        return self.model.prefill(self.params, batch, max_len=self.max_len)
+
+    def generate(self, batch: Dict[str, torch.Tensor], n_tokens: int,
+                 eos_id: Optional[int] = None) -> GenerationResult:
+        """``n_tokens`` greedy tokens per row of ``batch["tokens"]``; with
+        ``eos_id`` a row that emitted it keeps emitting it, and the loop
+        stops early once every row has."""
+        logits, cache = self.prefill(batch)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        outs = [tok]
+        done = torch.zeros_like(tok, dtype=torch.bool)
+        for _ in range(n_tokens - 1):
+            logits, cache = self.model.decode_step(self.params, cache, tok)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            if eos_id is not None:
+                done = done | (tok == eos_id)
+                tok = torch.where(done, torch.full_like(tok, eos_id), tok)
+            outs.append(tok)
+            if eos_id is not None and bool(done.all()):
+                break
+        return GenerationResult(tokens=torch.stack(outs, dim=1))
 
 
 class RequestState(str, enum.Enum):
@@ -120,26 +178,27 @@ class ServeRequest:
         return max(self.finish_step - self.decode_start_step, 0)
 
 
-def _not_ported(what: str):
-    raise ValueError(f"{what} is not ported yet")
-
-
 class SlotServeEngine:
-    """Continuous-batching engine over a paged KV slot arena.
+    """Continuous-batching engine over a fixed KV slot arena.
 
     Drive it with ``submit`` + ``run_until_done``, or ``step`` from an
     outer loop. Runs on ``device`` (default ``cuda``; raises without a
     card unless ``device="cpu"``); ``params`` must live there.
+    ``kv_layout`` is ``"slots"`` (contiguous, the default) or
+    ``"paged"``; ``prefill_chunk_tokens`` unset means one-shot prefill.
+    On the paged layout ``page_growth`` is ``"lazy"`` or ``"eager"``,
     ``attention_impl="fused"`` decodes through the fused paged-decode
-    kernel, ``"gather"`` through gather-then-attend.
+    kernel (``"gather"`` through gather-then-attend), and bucketed
+    dispatch (``"auto"``) is on.
     """
 
     def __init__(self, model, params, *, capacity: int, max_len: int,
                  temperature: float = 0.0, decode_chunk: int = 1,
                  eos_id: Optional[int] = None,
+                 pad_prompts_to: Optional[int] = None,
                  use_admission_kernel: bool = True,
                  plan_window: int = 64,
-                 kv_layout: str = "paged",
+                 kv_layout: str = "slots",
                  page_size: int = 16,
                  num_pages: Optional[int] = None,
                  max_pages_per_slot: Optional[int] = None,
@@ -156,32 +215,50 @@ class SlotServeEngine:
                  bucketed_dispatch: str = "auto",
                  sync: Optional[SyncLibrary] = None,
                  device=None):
-        if kv_layout != "paged":
-            _not_ported(f"kv_layout={kv_layout!r} (the contiguous slot "
-                        f"arena)")
-        if temperature > 0.0:
-            _not_ported("sampling (temperature > 0)")
-        if not prefill_chunk_tokens:
-            _not_ported("one-shot prefill (pass prefill_chunk_tokens)")
-        if page_growth != "lazy":
-            _not_ported(f"page_growth={page_growth!r}")
-        if prefix_sharing != "off":
-            _not_ported("prefix sharing (pass prefix_sharing='off')")
-        if prefix_cache != "off":
-            _not_ported("the prefix cache")
-        if fault_plan is not None:
-            _not_ported("fault injection")
         if capacity < 1 or decode_chunk < 1:
             raise ValueError("capacity and decode_chunk must be >= 1")
-        if int(prefill_chunk_tokens) < 1:
-            raise ValueError("prefill_chunk_tokens must be >= 1")
+        if kv_layout not in ("slots", "paged"):
+            raise ValueError(f"unknown kv_layout {kv_layout!r}")
+        if page_growth not in ("eager", "lazy"):
+            raise ValueError(f"unknown page_growth {page_growth!r}")
         if attention_impl not in ("gather", "fused"):
             raise ValueError(f"unknown attention_impl {attention_impl!r}; "
                              f"expected gather or fused")
+        if attention_impl == "fused" and kv_layout != "paged":
+            raise ValueError("attention_impl='fused' requires "
+                             "kv_layout='paged' (the fused kernel walks "
+                             "a block table)")
         if bucketed_dispatch not in ("auto", "on", "off"):
             raise ValueError(
                 f"unknown bucketed_dispatch {bucketed_dispatch!r}; "
                 f"expected auto, on, or off")
+        if bucketed_dispatch == "on" and kv_layout != "paged":
+            raise ValueError(
+                "bucketed_dispatch='on' requires kv_layout='paged', "
+                "greedy decoding, and attention-only layers")
+        for name, val in (("prefix_sharing", prefix_sharing),
+                          ("prefix_cache", prefix_cache)):
+            if val not in ("auto", "on", "off"):
+                raise ValueError(f"unknown {name} {val!r}; expected auto, "
+                                 f"on, or off")
+            if val == "on" and kv_layout != "paged":
+                raise ValueError(f"{name} requires kv_layout='paged' (the "
+                                 f"contiguous arena has no pages to share)")
+        if temperature > 0.0:
+            _not_ported("sampling (temperature > 0)")
+        # greedy, attention-only: "auto" turns sharing and the prefix
+        # cache on exactly where the reference does — the paged layout
+        if prefix_sharing == "on" or (prefix_sharing == "auto"
+                                      and kv_layout == "paged"):
+            _not_ported("prefix sharing (pass prefix_sharing='off')")
+        if prefix_cache == "on" or (prefix_cache == "auto"
+                                    and kv_layout == "paged"):
+            _not_ported("the prefix cache")
+        if fault_plan is not None:
+            _not_ported("fault injection")
+        chunk = int(prefill_chunk_tokens) if prefill_chunk_tokens else 0
+        if chunk < 0:
+            raise ValueError("prefill_chunk_tokens must be >= 1 (or None)")
         self.device = resolve_device(device)
         emb = params["embed"]["tokens"]
         if emb.device.type != self.device.type:
@@ -193,29 +270,37 @@ class SlotServeEngine:
         self.max_len = max_len
         self.decode_chunk = decode_chunk
         self.eos_id = eos_id
+        self.pad_prompts_to = pad_prompts_to
+        self.kv_layout = kv_layout
+        self.paged = kv_layout == "paged"
         self.attention_impl = attention_impl
         self.sync = sync if sync is not None else SyncLibrary.host_default()
         # the planning trace holds all K in-flight requests plus the
         # queued front; a window below capacity would cap concurrency
         self.plan_window = max(plan_window, 2 * capacity)
-        # greedy, paged, attention-only: every condition the reference
-        # gates bucketing on holds in this slice
-        self.bucketed_dispatch = bucketed_dispatch in ("auto", "on")
+        # greedy and attention-only, so the reference's bucketing gate
+        # reduces to the layout: the arena must be batch-free (paged)
+        self.bucketed_dispatch = self.paged and bucketed_dispatch in (
+            "auto", "on")
         self._dispatch_cache = (DecodeDispatchCache(capacity)
                                 if self.bucketed_dispatch else None)
-        self.prefill_chunk = int(prefill_chunk_tokens)
+        self.page_growth = page_growth if self.paged else "eager"
+        self.prefill_chunk = chunk
         self.round_token_budget = (
             int(round_token_budget) if round_token_budget
-            else capacity * (decode_chunk + self.prefill_chunk))
+            else capacity * (decode_chunk + chunk))
         self.admit_headroom = float(admit_headroom)
         self.page_lookahead_chunks = max(int(page_lookahead_chunks), 1)
-        self.pool = PagedSlotPool(
-            model, capacity, max_len, page_size=page_size,
-            num_pages=num_pages, max_pages_per_slot=max_pages_per_slot,
-            sync=self.sync, wait_mode=allocator_wait,
-            expected_contention=allocator_contention(
-                capacity, service_steps=float(max_len)),
-            device=self.device)
+        if self.paged:
+            self.pool = PagedSlotPool(
+                model, capacity, max_len, page_size=page_size,
+                num_pages=num_pages, max_pages_per_slot=max_pages_per_slot,
+                sync=self.sync, wait_mode=allocator_wait,
+                expected_contention=allocator_contention(
+                    capacity, service_steps=float(max_len)),
+                device=self.device)
+        else:
+            self.pool = SlotPool(model, capacity, max_len, self.device)
         self.admission = AdmissionController(capacity, lib=self.sync)
         self._admission_planner = (
             self.sync.semaphore_planner(capacity, window=self.plan_window,
@@ -233,6 +318,9 @@ class SlotServeEngine:
         self.prefill_tokens = 0
         self.pad_tokens = 0
         self.prefill_chunks = 0
+        #: one-shot rounds whose admissions prefilled while a request
+        #: was decoding (the stall chunked prefill removes)
+        self.decode_rounds_stalled_by_prefill = 0
         self._next_rid = 0
         self._last_tok = np.zeros(capacity, np.int32)
         self._steps_left = np.zeros(capacity, np.int64)
@@ -295,34 +383,59 @@ class SlotServeEngine:
             n_admit += 1
         return n_admit
 
+    def _bucket_len(self, n: int) -> int:
+        """The prompt's prefill length: ``pad_prompts_to`` or the next
+        power of 2 from 8, never past what a slot holds."""
+        if self.pad_prompts_to is not None:
+            b = max(self.pad_prompts_to, n)
+        else:
+            b = 8
+            while b < n:
+                b *= 2
+        return min(b, self.pool.virtual_max_len)
+
     def _headroom_pages(self) -> int:
         return int(np.ceil(self.admit_headroom * self.pool.pages.num_pages))
 
+    def _prefill_impl(self, tokens: torch.Tensor,
+                      length: Optional[torch.Tensor], pad_to: int):
+        """One-shot prefill of a right-padded ``[1, bucket]`` prompt; the
+        cache's time extent is ``pad_to`` (a whole slot row, or just the
+        bucket for the paged insert)."""
+        return self.model.prefill(self.params, {"tokens": tokens},
+                                  max_len=pad_to, length=length)
+
     def _admit(self) -> int:
-        """Chunked admission: pure bookkeeping, no model dispatch. The
-        page grant is tiered — the whole prompt plus the decode
-        lookahead when pages allow, else a chunk-lookahead window, else
-        the first chunk — and one allocator critical section covers the
-        whole batch."""
+        """One-shot admission of the FIFO front the Algorithm-5 timeline
+        grants now: slots first, then (paged) every page grant of the
+        batch in ONE allocator critical section — the prefill bucket
+        plus a decode lookahead under lazy growth, the worst case under
+        eager growth — then each request's whole-prompt prefill into its
+        slot and its first token. A page-starved FIFO head waits for
+        retirements; later requests do not jump it."""
+        if self.prefill_chunk:
+            return self._admit_chunked()
+        had_decoders = bool(self.active)
         n_admit = self._planned_admit_count()
-        staged = []                      # (req, slot, lp, grant)
-        staged_pages = 0
-        C = self.prefill_chunk
-        look = self.page_lookahead_chunks
+        staged = []                      # (req, slot, lp, bucket, reserve,
+        staged_pages = 0                 #  grant)
+        lazy = self.paged and self.page_growth == "lazy"
         while len(staged) < n_admit and self.queue and self.pool.n_free:
             req = self.queue[0]
             lp = int(req.prompt.size)
+            bucket = self._bucket_len(lp)
+            reserve = max(bucket, lp + req.max_new_tokens + 1)
             need = max(lp + req.max_new_tokens - 1, lp)
-            reserve = lp + req.max_new_tokens + 1
-            first = min(C, need)
-            window = min(C * look, need)
-            generous = min(max(lp, first) + self.decode_chunk * look, need)
-            grant = next(
-                (g for g in (generous, window, first)
-                 if self.pool.can_admit_lazy(
-                     g, reserve, headroom_pages=self._headroom_pages(),
-                     pending_pages=staged_pages)), None)
-            if grant is None:
+            grant = (max(bucket, min(bucket + self.decode_chunk
+                                     * self.page_lookahead_chunks, need))
+                     if lazy else reserve)
+            if self.paged and not (
+                    self.pool.can_admit_lazy(
+                        grant, reserve, headroom_pages=self._headroom_pages(),
+                        pending_pages=staged_pages)
+                    if lazy else
+                    self.pool.can_reserve(reserve,
+                                          pending_pages=staged_pages)):
                 break
             self.queue.popleft()
             # Algorithm-5 wait(): never blocks — the planner only granted
@@ -331,14 +444,108 @@ class SlotServeEngine:
                 self.queue.appendleft(req)
                 break
             slot = self.pool.acquire(req.rid)
-            staged.append((req, slot, lp, grant))
-            staged_pages += self.pool.pages.pages_for(grant)
+            staged.append((req, slot, lp, bucket, reserve, grant))
+            if self.paged:
+                staged_pages += self.pool.pages.pages_for(grant)
         if not staged:
             return 0
-        grants = self.pool.reserve_batch(
+        grants = (self.pool.reserve_batch(
+            [(slot, grant) for (_, slot, _, _, _, grant) in staged])
+            if self.paged else [None] * len(staged))
+        instant = []                 # eos / no budget on the prefill token
+        dev = self.device
+        for (req, slot, lp, bucket, reserve, grant), ids in zip(staged,
+                                                                 grants):
+            padded = np.zeros(bucket, np.int32)
+            padded[:lp] = req.prompt
+            length = (torch.tensor([lp], dtype=torch.int32, device=dev)
+                      if bucket != lp else None)
+            logits, cache = self._prefill_impl(
+                torch.from_numpy(padded)[None].to(dev), length,
+                pad_to=bucket if self.paged else self.max_len)
+            self.prefill_tokens += lp
+            self.pad_tokens += bucket - lp
+            tok0 = int(torch.argmax(logits[0]))
+            if self.paged:
+                self.pool.insert(slot, cache, lp, reserve=grant, ids=ids)
+            else:
+                self.pool.insert(slot, cache, lp, reserve=reserve)
+            self._last_tok[slot] = tok0
+            self._steps_left[slot] = req.max_new_tokens - 1
+            self._grow_cap[slot] = max(lp + req.max_new_tokens - 1, lp)
+            req.slot = slot
+            if req.preemptions == 0 or req.grant_step < 0:
+                # a preempted request keeps its first grant's log entry
+                req.grant_step = self.step_clock
+                req.grant_s = time.perf_counter()
+                self.grant_log.append(req.rid)
+            # prefilled inside the granting round: PREFILLING is
+            # instantaneous on the step clock
+            req.state = RequestState.DECODING
+            req.decode_start_step = self.step_clock
+            req.out_tokens.append(tok0)
+            if self.eos_id is not None and tok0 == self.eos_id:
+                req.eos = True
+            self.active[slot] = req
+            if req.eos or self._steps_left[slot] <= 0:
+                instant.append((slot, 0))
+        self._retire_batch(instant)
+        if had_decoders:
+            self.decode_rounds_stalled_by_prefill += 1
+        return len(staged)
+
+    def _admit_chunked(self) -> int:
+        """Chunked admission: pure bookkeeping, no model dispatch. Paged
+        page grants are tiered under lazy growth — the whole prompt plus
+        the decode lookahead when pages allow, else a chunk-lookahead
+        window, else the first chunk — or the worst case under eager
+        growth, and one allocator critical section covers the batch.
+        The slot layout needs no pages."""
+        n_admit = self._planned_admit_count()
+        staged = []                      # (req, slot, lp, grant)
+        staged_pages = 0
+        C = self.prefill_chunk
+        look = self.page_lookahead_chunks
+        lazy = self.paged and self.page_growth == "lazy"
+        while len(staged) < n_admit and self.queue and self.pool.n_free:
+            req = self.queue[0]
+            lp = int(req.prompt.size)
+            need = max(lp + req.max_new_tokens - 1, lp)
+            reserve = lp + req.max_new_tokens + 1
+            grant = 0
+            if lazy:
+                first = min(C, need)
+                window = min(C * look, need)
+                generous = min(max(lp, first) + self.decode_chunk * look,
+                               need)
+                grant = next(
+                    (g for g in (generous, window, first)
+                     if self.pool.can_admit_lazy(
+                         g, reserve, headroom_pages=self._headroom_pages(),
+                         pending_pages=staged_pages)), None)
+            elif self.paged:
+                grant = (reserve if self.pool.can_reserve(
+                    reserve, pending_pages=staged_pages) else None)
+            if grant is None:
+                break
+            self.queue.popleft()
+            if not self.admission.acquire_slot(timeout=5.0):
+                self.queue.appendleft(req)
+                break
+            slot = self.pool.acquire(req.rid)
+            staged.append((req, slot, lp, grant))
+            if self.paged:
+                staged_pages += self.pool.pages.pages_for(grant)
+        if not staged:
+            return 0
+        grants = (self.pool.reserve_batch(
             [(slot, grant) for (_, slot, _, grant) in staged])
+            if self.paged else [None] * len(staged))
         for (req, slot, lp, _), ids in zip(staged, grants):
-            self.pool.assign(slot, ids=ids, length=0)
+            if self.paged:
+                self.pool.assign(slot, ids=ids, length=0)
+            else:
+                self.pool.assign(slot, length=0)
             self._pf_pos[slot] = 0
             self._pf_end[slot] = lp
             self._last_tok[slot] = 0
@@ -355,8 +562,9 @@ class SlotServeEngine:
         return len(staged)
 
     def _retire_batch(self, pairs: List[Tuple[int, int]]) -> None:
-        """Retire ``(slot, step_offset)`` pairs; every retirement's pages
-        return in ONE allocator critical section."""
+        """Retire ``(slot, step_offset)`` pairs; under the paged layout
+        every retirement's pages return in ONE allocator critical
+        section."""
         deferred = []
         for slot, offset in pairs:
             req = self.active.pop(slot)
@@ -365,14 +573,14 @@ class SlotServeEngine:
             req.finish_s = time.perf_counter()
             self._steps_left[slot] = 0
             held = self.pool.evict(slot)
-            if held.size:
+            if held is not None and held.size:
                 deferred.append(held)
             self.admission.release_slot()
             self.finished.append(req)
         if deferred:
             self.pool.pages.free_batch(deferred)
 
-    # --------------------------------------------------- lazy page growth
+    # --------------------------------------------- lazy page growth (paged)
     def _preempt(self, slot: int) -> None:
         """Lazy-overflow eviction: the victim's pages return now and it
         goes back to the queue front, to restart from its prompt (greedy
@@ -407,11 +615,12 @@ class SlotServeEngine:
         covered pauses for the round; a chunk whose pages starve is
         deferred whole. If nobody can advance, the youngest grant is
         preempted until someone can. Returns ``(paused_decode_slots,
-        advancing_chunk_slots)``."""
+        advancing_chunk_slots)``. Eager growth reserved every page at
+        admission: nothing to do."""
         chunk_set = set(chunk_rows)
-        if not self.active:
+        if not self.active or self.page_growth != "lazy":
             return set(), chunk_set
-        C = self.prefill_chunk
+        C = max(self.prefill_chunk, 1)
         ps = self.pool.page_size
         lens = self.pool.lens_numpy()
         order = sorted(self.active, key=lambda s: self.active[s].rid)
@@ -469,27 +678,29 @@ class SlotServeEngine:
             toks.append(nxt)
         return cache, tok, torch.stack(toks)               # [steps, B]
 
-    def _round(self, cache, last_tok, frozen, pf_tok, pf_qpos, pf_wpos,
-               steps, chunk):
-        """The decode scan FIRST, then the optional prefill chunk — the
-        chunk's writes must overwrite the scratch K/V that the frozen
-        prefilling rows' decode steps wrote at their cursor."""
+    def _round(self, cache, last_tok, frozen, pf, steps):
+        """The decode scan FIRST, then the prefill chunk when ``pf`` =
+        ``(tokens, positions, write positions)`` is given — the chunk's
+        writes must overwrite the scratch K/V that the frozen prefilling
+        rows' decode steps wrote at their cursor."""
         cache, tok, toks = self._decode_scan(cache, last_tok, frozen, steps)
         pf_logits = None
-        if chunk:
-            pf_logits, cache = self.model.prefill_chunk(
-                self.params, cache, pf_tok, pf_qpos, pf_wpos)
+        if pf is not None:
+            pf_logits, cache = self.model.prefill_chunk(self.params, cache,
+                                                        *pf)
         return cache, tok, toks, pf_logits
 
-    def _bucket_round(self, cache, rows: np.ndarray, last_tok, frozen,
-                      pf_tok, pf_qpos, pf_wpos, steps, chunk):
+    def _bucket_round(self, cache, rows: np.ndarray, last_tok, frozen, pf,
+                      steps):
         """The round over a ``[kb]``-row gather of the active slots. Pad
         lanes (row id == K) are inert: length 0, sentinel table row,
         frozen, ``_DROP_POS`` writes — and only the live lanes are
         scattered back (the reference drops the pad lanes' scatter-back
         at the out-of-range row ``K``)."""
         K = self.capacity
-        self._dispatch_cache.record_shape(("round", len(rows), steps, chunk))
+        self._dispatch_cache.record_shape(
+            ("round", len(rows), steps, 0 if pf is None else pf[0].shape[1])
+            if self.prefill_chunk else ("decode", len(rows), steps))
         live = np.flatnonzero(rows < K)
         dev = self.device
         r = torch.from_numpy(np.minimum(rows, K - 1).astype(np.int64)).to(dev)
@@ -498,11 +709,13 @@ class SlotServeEngine:
         cache_b["len"] = torch.where(pad, 0, cache["len"][r])
         cache_b["pages"] = torch.where(
             pad[:, None], self.pool.pages.num_pages, cache["pages"][r])
-        out_b = self._round(
-            cache_b, torch.where(pad, 0, last_tok[r]), frozen[r] | pad,
-            pf_tok[r], pf_qpos[r],
-            torch.where(pad[:, None], _DROP_POS, pf_wpos[r]), steps, chunk)
-        cache_o, tok_b, toks_b, pf_logits_b = out_b
+        if pf is not None:
+            pf_tok, pf_qpos, pf_wpos = pf
+            pf = (pf_tok[r], pf_qpos[r],
+                  torch.where(pad[:, None], _DROP_POS, pf_wpos[r]))
+        cache_o, tok_b, toks_b, pf_logits_b = self._round(
+            cache_b, torch.where(pad, 0, last_tok[r]), frozen[r] | pad, pf,
+            steps)
         src = torch.from_numpy(live).to(dev)
         dst = torch.from_numpy(rows[live].astype(np.int64)).to(dev)
         out = dict(cache_o)
@@ -514,7 +727,7 @@ class SlotServeEngine:
         toks = last_tok[None, :].expand(steps, K).clone()
         toks[:, dst] = toks_b[:, src]
         pf_logits = None
-        if chunk:
+        if pf is not None:
             pf_logits = torch.zeros((K,) + tuple(pf_logits_b.shape[1:]),
                                     dtype=pf_logits_b.dtype, device=dev)
             pf_logits[dst] = pf_logits_b[src]
@@ -522,10 +735,11 @@ class SlotServeEngine:
 
     # ------------------------------------------------------------ decode loop
     def step(self) -> int:
-        """One scheduler round: re-tune the allocator's wait strategy,
-        admit per the Algorithm-5 plan, prepare pages, dispatch, retire.
-        Returns the number of still-active requests."""
-        self.pool.retune()
+        """One scheduler round: re-tune the allocator's wait strategy
+        (paged), admit per the Algorithm-5 plan, prepare pages, dispatch,
+        retire. Returns the number of still-active requests."""
+        if self.paged:
+            self.pool.retune()
         self._admit()
         if not self.active:
             return 0
@@ -534,15 +748,21 @@ class SlotServeEngine:
     def _run_round(self) -> int:
         steps = self.decode_chunk
         C = self.prefill_chunk
-        backlog = sorted((s for s in self.active if self._prefilling(s)),
-                         key=lambda s: self.active[s].rid)
-        decode_rows = [s for s in self.active if not self._prefilling(s)]
-        planned = plan_round(
-            self.round_token_budget, decode_rows, backlog, chunk_tokens=C,
-            decode_chunk=steps,
-            remaining={s: int(self._pf_end[s] - self._pf_pos[s])
-                       for s in backlog}).chunk_rows
-        paused, advancing = self._grow_for_chunk(steps, tuple(planned))
+        planned: List[int] = []
+        if C:
+            backlog = sorted((s for s in self.active if self._prefilling(s)),
+                             key=lambda s: self.active[s].rid)
+            decode_rows = [s for s in self.active
+                           if not self._prefilling(s)]
+            planned = plan_round(
+                self.round_token_budget, decode_rows, backlog,
+                chunk_tokens=C, decode_chunk=steps,
+                remaining={s: int(self._pf_end[s] - self._pf_pos[s])
+                           for s in backlog}).chunk_rows
+        if self.paged:
+            paused, advancing = self._grow_for_chunk(steps, tuple(planned))
+        else:
+            paused, advancing = set(), set(planned)
         if not self.active:                    # everything preempted away
             return 0
         chunk_rows = [s for s in planned
@@ -557,24 +777,24 @@ class SlotServeEngine:
         if paused:
             # paused rows must not touch the arena this round
             view["pages"] = self.pool.masked_table(paused)
-        pf_tok = np.zeros((self.capacity, C), np.int32)
-        pf_qpos = np.zeros((self.capacity, C), np.int32)
-        pf_wpos = np.full((self.capacity, C), _DROP_POS, np.int32)
-        valid: Dict[int, int] = {}
-        for s in chunk_rows:
-            p0 = int(self._pf_pos[s])
-            v = int(min(C, self._pf_end[s] - p0))
-            pf_tok[s, :v] = self.active[s].prompt[p0:p0 + v]
-            pf_qpos[s, :] = p0 + np.arange(C)
-            pf_wpos[s, :v] = p0 + np.arange(v)
-            valid[s] = v
         dev = self.device
-        args = (view, torch.from_numpy(self._last_tok).to(dev),
-                torch.from_numpy(frozen).to(dev),
-                torch.from_numpy(pf_tok).to(dev),
-                torch.from_numpy(pf_qpos).to(dev),
-                torch.from_numpy(pf_wpos).to(dev))
-        chunk = C if chunk_rows else 0
+        pf = None
+        valid: Dict[int, int] = {}
+        if chunk_rows:
+            pf_tok = np.zeros((self.capacity, C), np.int32)
+            pf_qpos = np.zeros((self.capacity, C), np.int32)
+            pf_wpos = np.full((self.capacity, C), _DROP_POS, np.int32)
+            for s in chunk_rows:
+                p0 = int(self._pf_pos[s])
+                v = int(min(C, self._pf_end[s] - p0))
+                pf_tok[s, :v] = self.active[s].prompt[p0:p0 + v]
+                pf_qpos[s, :] = p0 + np.arange(C)
+                pf_wpos[s, :v] = p0 + np.arange(v)
+                valid[s] = v
+            pf = tuple(torch.from_numpy(x).to(dev)
+                       for x in (pf_tok, pf_qpos, pf_wpos))
+        last_tok = torch.from_numpy(self._last_tok).to(dev)
+        frozen_t = torch.from_numpy(frozen).to(dev)
         if self.bucketed_dispatch:
             # every active slot rides the bucket (prefilling and paused
             # rows too: the decode-then-chunk ordering needs their lanes);
@@ -582,9 +802,10 @@ class SlotServeEngine:
             kb = self._dispatch_cache.bucket(len(self.active))
             rows = self._dispatch_cache.pad_rows(sorted(self.active), kb)
             cache, tok, toks, pf_logits = self._bucket_round(
-                args[0], rows, *args[1:], steps, chunk)
+                view, rows, last_tok, frozen_t, pf, steps)
         else:
-            cache, tok, toks, pf_logits = self._round(*args, steps, chunk)
+            cache, tok, toks, pf_logits = self._round(
+                view, last_tok, frozen_t, pf, steps)
         self.decode_dispatches += 1
         self.pool.adopt(cache)
         self._last_tok = tok.cpu().numpy().astype(np.int32)
@@ -663,7 +884,8 @@ class SlotServeEngine:
     # -------------------------------------------------------------- reporting
     def stats(self) -> Dict[str, float]:
         """Aggregate serving counters (the reference's keys that this
-        slice fills; all floats)."""
+        slice fills; all floats; the allocator's only on the paged
+        layout)."""
         term = self.finished
         granted = [r for r in term if r.grant_step >= 0]
         waits = np.asarray([r.wait_steps for r in granted], np.float32)
@@ -674,9 +896,7 @@ class SlotServeEngine:
             arr = np.asarray(vals, np.float32)
             return float(np.percentile(arr, q)) if arr.size else 0.0
 
-        pp = self.pool.pages
-        ls = pp.lock_stats()
-        return {
+        out = {
             "finished": float(len(term)),
             "tokens": float(toks),
             "decode_dispatches": float(self.decode_dispatches),
@@ -701,10 +921,18 @@ class SlotServeEngine:
                              / float(max(self.prefill_tokens
                                          + self.pad_tokens, 1))),
             "prefill_chunks": float(self.prefill_chunks),
+            "decode_rounds_stalled_by_prefill": float(
+                self.decode_rounds_stalled_by_prefill),
             "attention_fused": float(self.attention_impl == "fused"),
             "bucketed_dispatch": float(self.bucketed_dispatch),
             "dispatch_shapes": float(len(self._dispatch_cache.shapes)
                                      if self._dispatch_cache else 0),
+        }
+        if not self.paged:
+            return out
+        pp = self.pool.pages
+        ls = pp.lock_stats()
+        out.update({
             "page_allocs": float(pp.allocs),
             "page_frees": float(pp.frees),
             "pages_peak_in_use": float(pp.peak_in_use),
@@ -722,4 +950,5 @@ class SlotServeEngine:
             "per_page_lock_acquires_per_token": (
                 float(pp.pages_alloced + pp.pages_freed)
                 / float(max(toks, 1))),
-        }
+        })
+        return out

@@ -1,6 +1,7 @@
 """Paged KV arena: a page-pool allocator + a block-table slot pool
 (counterpart of ``repro.serve.kv_pages``; prefix sharing, the
-copy-on-write split and the prefix index are not ported yet).
+copy-on-write split, the prefix index and ``insert``'s shared-prefix
+arguments are not ported yet).
 
   * one ``[num_pages, page_size, KV, hd]`` arena per layer and k/v,
     shared by all K slots, as torch tensors on the engine's device;
@@ -29,6 +30,7 @@ import torch
 
 from repro_torch.core.abstraction import PrimitiveKind, WaitStrategy
 from repro_torch.core.device import resolve_device
+from repro_torch.serve.kv_slots import cache_leaves
 from repro_torch.sync import SyncLibrary
 
 Tree = Dict[str, Any]
@@ -399,6 +401,14 @@ class PagedSlotPool:
         return held
 
     # ------------------------------------------------------------- admission
+    def can_reserve(self, tokens: int, pending_pages: int = 0) -> bool:
+        """Whether an insert reserving ``tokens`` flat positions can be
+        granted now (eager growth's admission gate); ``pending_pages``
+        counts grants staged earlier in the same admission batch."""
+        n = self.pages.pages_for(tokens)
+        return (n <= self.max_pages_per_slot
+                and n + max(int(pending_pages), 0) <= self.pages.n_free)
+
     def can_admit_lazy(self, initial_tokens: int, total_tokens: int,
                        headroom_pages: int = 0,
                        pending_pages: int = 0) -> bool:
@@ -478,6 +488,54 @@ class PagedSlotPool:
             counts.append(n)
         return self.pages.alloc_batch(
             counts, [self._rid[slot] for slot, _ in items])
+
+    def insert(self, slot: int, req_cache: Tree, length,
+               reserve: Optional[int] = None,
+               ids: Optional[np.ndarray] = None) -> None:
+        """Scatter a prefilled batch-1 request cache (time axis S, the
+        prompt's bucket) into ``slot``'s pages and set its length.
+
+        ``reserve`` is the flat positions claimed at insert: the worst
+        case under eager growth, the prefill bucket under lazy growth
+        (default a full ``max_len`` row). ``ids`` are pages pre-granted
+        by :meth:`reserve_batch`; without them the insert allocates its
+        own (one critical section). The prefill data fills the first
+        ``ceil(S / ps)`` pages (the last one zero-padded); the rest of
+        the grant holds stale bytes masked by the length until decode
+        writes them."""
+        s = cache_leaves(req_cache)[0][3].shape[-3]
+        reserve = max(int(reserve) if reserve is not None else self.max_len,
+                      s, int(length))
+        n_total = self.pages.pages_for(reserve)
+        if n_total > self.max_pages_per_slot:
+            raise ValueError(
+                f"reserve {reserve} needs {n_total} pages > "
+                f"max_pages_per_slot {self.max_pages_per_slot}")
+        n_data = self.pages.pages_for(s)
+        if ids is None:
+            ids = self.pages.alloc_batch([max(n_total, n_data)],
+                                         [self._rid[slot]])[0]
+        ids = np.asarray(ids, np.int32).reshape(-1)
+        if ids.size < n_data:
+            raise ValueError(f"pre-granted {ids.size} pages cannot hold the "
+                             f"{n_data}-page prefill")
+        if ids.size > self.max_pages_per_slot:
+            raise ValueError(f"{ids.size} pages exceed max_pages_per_slot "
+                             f"{self.max_pages_per_slot}")
+        self._tables[slot, :ids.size] = ids
+        self._tables[slot, ids.size:] = self.pages.num_pages
+        ps = self.page_size
+        dst = torch.from_numpy(ids[:n_data].astype(np.int64)).to(self.device)
+        for (_, _, _, a), (_, _, _, r) in zip(cache_leaves(self.arena),
+                                              cache_leaves(req_cache)):
+            ax = a.dim() - 4            # the page axis: after the periods
+            r = r.select(ax, 0)         # drop batch 1; time now at ax
+            pad = list(r.shape)
+            pad[ax] = n_data * ps - s
+            r = torch.cat([r, r.new_zeros(pad)], dim=ax)
+            r = r.reshape(r.shape[:ax] + (n_data, ps) + r.shape[ax + 1:])
+            a[(slice(None),) * ax + (dst,)] = r.to(a.dtype)
+        self.lens[int(slot)] = int(length)
 
     def assign(self, slot: int, ids: Optional[np.ndarray] = None,
                length: int = 0) -> None:

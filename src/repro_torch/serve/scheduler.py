@@ -1,5 +1,5 @@
 """Continuous-batching admission scheduler built on the paper's semaphore
-(counterpart of ``repro.serve.scheduler``: the serving engine's part).
+(counterpart of ``repro.serve.scheduler``).
 
 The serving fleet has a hard concurrency budget (KV-cache slots per
 replica). Admission control under that budget is *exactly* a counting
@@ -19,13 +19,17 @@ algorithm (sleeping vs spin, the spin-vs-sleep admission knob) and the
 planner's backend (CUDA kernel / plain version) are configuration, not
 code. ``AdmissionController`` is the host-side gate;
 ``plan_admission`` is the planner used for batching decisions and
-reported in benchmarks/serving.
+reported in benchmarks/serving; ``plan_round`` splits a round's token
+budget between decode rows and prefill chunks; ``ContinuousBatcher`` is
+the step-level batcher the slot engine grew out of.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import Callable, Dict, List, Optional, Sequence
+import threading
+from typing import Callable, Deque, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -204,3 +208,65 @@ def plan_round(budget: int, decode_rows: Sequence[int],
     if not rows and not decode_rows:
         rows = backlog[:1]                  # progress guarantee
     return RoundPlan(decode_tokens, rows, len(backlog) - len(rows))
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt_len: int
+    max_new_tokens: int
+    arrival_s: float = 0.0
+    done: threading.Event = dataclasses.field(
+        default_factory=threading.Event)
+    output: Optional[np.ndarray] = None
+
+
+class ContinuousBatcher:
+    """Step-level batcher: admit up to capacity, decode together, retire.
+
+    ``decode_fn(batch_ids) -> finished_mask`` abstracts the engine; the
+    batcher owns FIFO admission (ticket order == arrival order) and slot
+    recycling: a request leaves when ``decode_fn`` flags it or its
+    ``max_new_tokens`` steps are spent, and its ``done`` event is set.
+    """
+
+    def __init__(self, capacity: int,
+                 decode_fn: Callable[[List[int]], List[bool]]):
+        self.capacity = capacity
+        self.decode_fn = decode_fn
+        # deque: admission pops the FIFO head in O(1)
+        self.queue: Deque[Request] = collections.deque()
+        self.active: List[Request] = []
+        self.finished: List[Request] = []
+        self._steps_left: Dict[int, int] = {}
+
+    def submit(self, req: Request) -> None:
+        self.queue.append(req)
+
+    def step(self) -> int:
+        """One scheduler tick. Returns the number of active sequences."""
+        # admit FIFO while there is capacity (the semaphore discipline)
+        while self.queue and len(self.active) < self.capacity:
+            req = self.queue.popleft()
+            self.active.append(req)
+            self._steps_left[req.rid] = req.max_new_tokens
+        if not self.active:
+            return 0
+        finished = self.decode_fn([r.rid for r in self.active])
+        still = []
+        for r, f in zip(self.active, finished):
+            self._steps_left[r.rid] -= 1
+            if f or self._steps_left[r.rid] <= 0:
+                r.done.set()
+                self.finished.append(r)
+            else:
+                still.append(r)
+        self.active = still
+        return len(self.active)
+
+    def drain(self, max_ticks: int = 1_000_000) -> int:
+        ticks = 0
+        while (self.queue or self.active) and ticks < max_ticks:
+            self.step()
+            ticks += 1
+        return ticks

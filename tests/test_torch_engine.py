@@ -6,8 +6,10 @@ sharing off. Greedy token streams, the FIFO ``grant_log``, the
 allocator's lock acquires, pauses and preemptions must be identical,
 and both pools must drain to zero pages in use — including arenas small
 enough to pause and preempt. Also: every feature outside the slice
-raises at construction, and the entry point refuses to run without a
-card unless asked for the CPU."""
+raises at construction, the former gaps (the slot arena, one-shot
+prefill, eager growth) serve, and the entry point refuses to run
+without a card unless asked for the CPU. The slot layout and one-shot
+prefill are held to the JAX engine in tests/test_torch_slots.py."""
 
 import jax
 import numpy as np
@@ -92,10 +94,10 @@ def test_bucket_pad_lanes_match_reference(models):
 
 def test_bucket_pad_lanes_leave_vacant_slots_untouched(models):
     _, _, tm, tp = models
-    eng = SlotServeEngine(tm, tp, capacity=4, max_len=32, page_size=4,
-                          prefill_chunk_tokens=4, decode_chunk=2,
-                          attention_impl="fused", bucketed_dispatch="on",
-                          device="cpu")
+    eng = SlotServeEngine(tm, tp, capacity=4, max_len=32, kv_layout="paged",
+                          page_size=4, prefill_chunk_tokens=4,
+                          decode_chunk=2, attention_impl="fused",
+                          bucketed_dispatch="on", device="cpu")
     for p, n in _requests(3, n=3):
         eng.submit(p, n)
     eng.step()
@@ -108,22 +110,41 @@ def test_bucket_pad_lanes_leave_vacant_slots_untouched(models):
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(kv_layout="slots"), "contiguous slot arena"),
     (dict(temperature=0.7), "sampling"),
-    (dict(prefill_chunk_tokens=None), "one-shot prefill"),
-    (dict(page_growth="eager"), "page_growth"),
+    (dict(kv_layout="slots", temperature=0.7), "sampling"),
     (dict(prefix_sharing="on"), "prefix sharing"),
     (dict(prefix_sharing="auto"), "prefix sharing"),
     (dict(prefix_cache="on"), "prefix cache"),
+    (dict(prefix_cache="auto"), "prefix cache"),
     (dict(fault_plan=object()), "fault injection"),
+    (dict(kv_layout="slots", fault_plan=object()), "fault injection"),
 ])
 def test_features_outside_the_slice_raise(models, kw, what):
+    """Still outside: sampling, prefix sharing and the prefix cache where
+    the reference turns them on (the paged layout), fault injection."""
     _, _, tm, tp = models
-    args = dict(capacity=2, max_len=16, prefill_chunk_tokens=4,
-                device="cpu")
+    args = dict(capacity=2, max_len=16, kv_layout="paged",
+                prefill_chunk_tokens=4, device="cpu")
     args.update(kw)
     with pytest.raises(ValueError, match=f"{what}.*not ported yet"):
         SlotServeEngine(tm, tp, **args)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(kv_layout="slots", prefill_chunk_tokens=4),
+    dict(kv_layout="paged", prefill_chunk_tokens=None),
+    dict(kv_layout="paged", prefill_chunk_tokens=4, page_growth="eager"),
+], ids=["contiguous slot arena", "one-shot prefill", "page_growth eager"])
+def test_former_gaps_build_and_serve(models, kw):
+    """The cases that raised "not ported yet" before this slice now build
+    an engine and serve a request to the end."""
+    _, _, tm, tp = models
+    eng = SlotServeEngine(tm, tp, capacity=2, max_len=16, page_size=4,
+                          device="cpu", **kw)
+    req = eng.submit(np.arange(5, dtype=np.int32), 3)
+    eng.run_until_done()
+    assert eng.finished == [req] and len(req.out_tokens) == 3
+    assert eng.grant_log == [0]
 
 
 def test_deadlines_and_cancel_raise(models):

@@ -34,11 +34,19 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n"
+        "print(' '.join(sorted(sys.modules)))\n"
         "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) > 20
+    count, names = out.stdout.strip().split("\n")
+    assert int(count) > 20
+    # the serving path's modules, the slot arena and the legacy engine
+    # among them, were imported by the walk and pulled in neither
+    for mod in ("repro_torch.serve.kv_slots", "repro_torch.serve.engine",
+                "repro_torch.serve.scheduler", "repro_torch.launch.serve",
+                "repro_torch.models.attention", "repro_torch.models.lm"):
+        assert mod in names.split(), mod
 
 
 def _imports(path):
@@ -81,12 +89,53 @@ def test_serve_cli_refuses_the_cpu_by_default():
         serve.main(["--arch", "qwen3-14b", "--smoke", "--requests", "1"])
 
 
+@pytest.mark.parametrize("flags", [
+    ["--legacy"], ["--kv-layout", "paged"],
+    ["--kv-layout", "slots", "--prefill-chunk-tokens", "4"]],
+    ids=["legacy", "paged", "slots-chunked"])
+def test_serve_cli_paths_refuse_the_cpu_by_default(flags):
+    _no_card()
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "qwen3-14b", "--smoke", "--requests", "1",
+                    *flags])
+
+
+def test_slot_arena_refuses_the_cpu_by_default():
+    _no_card()
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.serve.kv_slots import SlotPool
+    model = build_model(get_arch("qwen3-14b").reduced())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SlotPool(model, 2, 8)
+
+
+def test_serve_cli_default_invocation_runs_on_the_cpu(capsys):
+    """The reference launcher's default invocation (the contiguous slot
+    arena, one-shot prefill, decode chunk 2) with the legacy loop's
+    comparison, on the CPU because it is asked for."""
+    from repro_torch.launch import serve
+    eng = serve.main(["--arch", "qwen3-14b", "--smoke", "--device", "cpu",
+                      "--requests", "12", "--capacity", "4",
+                      "--prompt-len", "16", "--new-tokens", "8",
+                      "--legacy"])
+    out = capsys.readouterr().out
+    assert eng.kv_layout == "slots" and eng.prefill_chunk == 0
+    assert eng.decode_chunk == 2
+    assert "slots engine: 12 requests, 96 tokens" in out
+    assert "FIFO grant order: OK" in out
+    assert "legacy loop: 96 tokens" in out and "speedup" in out
+    assert eng.grant_log == list(range(12))
+
+
 def test_serve_cli_runs_on_the_cpu_when_asked(capsys):
     from repro_torch.launch import serve
     eng = serve.main(["--arch", "qwen3-14b", "--smoke", "--requests", "4",
                       "--capacity", "2", "--prompt-len", "6",
-                      "--new-tokens", "3", "--page-size", "4",
-                      "--prefill-chunk-tokens", "4", "--device", "cpu"])
+                      "--new-tokens", "3", "--kv-layout", "paged",
+                      "--page-size", "4", "--prefill-chunk-tokens", "4",
+                      "--device", "cpu"])
     out = capsys.readouterr().out
     assert "FIFO grant order: OK" in out and "leak check: OK" in out
     assert eng.grant_log == [0, 1, 2, 3]

@@ -156,7 +156,13 @@ def test_prefill_chunks_then_greedy_decode(models, impl):
 
 
 def test_decode_step_requires_the_paged_cache(models):
-    _, _, _, tm, tp = models
-    cache = tm.init_cache(2, 4, "cpu")
-    with pytest.raises(ValueError, match="not ported yet"):
-        tm.decode_step(tp, cache, torch.zeros(1, dtype=torch.int32))
+    """Only the paged path reads ``cache["pages"]``: a cache without it
+    (formerly refused) takes the contiguous path, which matches the
+    reference's (held in full by tests/test_torch_prefill.py)."""
+    jm, jp, _, tm, tp = models
+    tok = np.array([3, 4], np.int32)
+    jl, _ = jm.decode_step(jp, jm.init_cache(2, 4), jnp.asarray(tok))
+    tl, tc = tm.decode_step(tp, tm.init_cache(2, 4, "cpu"),
+                            torch.from_numpy(tok))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL, rtol=0)
+    assert "pages" not in tc and int(tc["len"]) == 1

@@ -104,11 +104,46 @@ def test_library_ref_backend_plans_like_reference():
 
 
 def test_capacity_bounds():
+    """K 0 is refused; past the kernel's register layout (K 1025) the
+    plain version plans like the reference: no cap below the card's
+    memory."""
     a = torch.zeros(4)
     with pytest.raises(ValueError, match="capacity"):
         tsem.semaphore_admission(a, a, 0)
-    with pytest.raises(ValueError, match="capacity"):
-        tsem.semaphore_admission(a, a, tsem.MAX_CAPACITY + 1)
+    cap = tsem.REGISTER_CAPACITY + 1
+    arr, hold = _saturating_trace(7, cap + 200)
+    want = sleeping_semaphore_ref(jnp.asarray(arr), jnp.asarray(hold), cap)
+    got = tsem.semaphore_admission(torch.from_numpy(arr),
+                                   torch.from_numpy(hold), cap)
+    assert int(got[2].sum()) > 0
+    for w, g in zip(want, got):
+        _bits_equal(w, g.numpy())
+
+
+def _saturating_trace(seed, n):
+    """More arrivals than slots inside one hold: the last ones wait."""
+    rng = np.random.default_rng(seed)
+    return (np.sort(rng.uniform(0.0, 0.5, n)).astype(np.float32),
+            rng.integers(1, 9, n).astype(np.float32))
+
+
+def test_library_ref_backend_plans_past_1024_like_reference():
+    """``plan_semaphore(capacity=2048)`` on the port's ``ref`` backend
+    returns the JAX ``ref`` backend's plan bit for bit (it raised before
+    the cap moved to the CUDA kernel's register layout)."""
+    import repro.sync as jsync
+    rng = np.random.default_rng(11)
+    arr = rng.uniform(0.0, 0.5, 2100).astype(np.float32)
+    hold = rng.integers(1, 9, 2100).astype(np.float32)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        want = jsync.SyncLibrary.host_default().plan_semaphore(
+            arr, hold, 2048, backend="ref")
+        got = SyncLibrary.host_default().plan_semaphore(arr, hold, 2048,
+                                                        backend="ref")
+    assert got.backend == "ref" and int(got.waited.sum()) > 0
+    for name in ("grant", "release", "waited"):
+        _bits_equal(getattr(want, name), getattr(got, name))
 
 
 def test_wrapper_has_no_fallback_off_the_cpu():
@@ -155,6 +190,36 @@ def test_cuda_kernel_bit_equal_at_layout_boundaries(cuda_device, capacity,
                                               capacity)
         for w, g in zip(want, got):
             _bits_equal(w.numpy(), g.cpu().numpy())
+
+
+@pytest.mark.parametrize("capacity", [1025, 2048])
+def test_cuda_kernel_bit_equal_past_register_capacity(cuda_device,
+                                                      capacity):
+    """The column kernel (slot times in global scratch) on saturating
+    traces, so the last arrivals wait, and on K > N."""
+    for n in (capacity + 300, 64):
+        arr, hold = _saturating_trace(capacity + n, n)
+        before = tsem.SEMAPHORE_ADMISSION.launches
+        got = tsem.semaphore_admission(
+            torch.from_numpy(arr).to(cuda_device),
+            torch.from_numpy(hold).to(cuda_device), capacity)
+        assert tsem.SEMAPHORE_ADMISSION.launches == before + 1
+        want = tsem.semaphore_admission_plain(torch.from_numpy(arr),
+                                              torch.from_numpy(hold),
+                                              capacity)
+        for w, g in zip(want, got):
+            _bits_equal(w.numpy(), g.cpu().numpy())
+
+
+def test_cuda_window_plans_past_register_capacity(cuda_device):
+    win = tsem.AdmissionWindow(cuda_device, base_window=4096)
+    arr, hold = _saturating_trace(3, 2100)
+    want = tsem.AdmissionWindow("cpu", base_window=4096)(arr, hold,
+                                                         capacity=2048)
+    for _ in range(2):
+        got = win(arr, hold, capacity=2048)
+        for w, g in zip(want, got):
+            _bits_equal(w, g)
 
 
 def test_cuda_window_plan_is_one_launch(cuda_device):

@@ -1,7 +1,9 @@
 """The CUDA admission kernel's algorithm, modelled on the CPU
-(``semaphore_admission_model``: lanes of sorted register slots,
-order-preserving integer keys and the first tied lane), held bit-equal to the JAX package's Pallas kernel (interpret
-mode) and its ``lax.scan`` oracle on grant, release and waited.
+(``semaphore_admission_model``: lanes of sorted register slots, or
+above 1024 slots a column per lane, order-preserving integer keys and
+the first tied lane), held bit-equal to the JAX package's Pallas kernel
+(interpret mode) and its ``lax.scan`` oracle on grant, release and
+waited.
 
 The kernel replaces *a* slot holding the minimum, not the reference's
 lowest-index one; only the minimum's value reaches an output, so the
@@ -79,8 +81,34 @@ def test_model_equals_plain_version_on_a_long_trace():
 
 
 def test_model_rejects_capacity_out_of_range():
+    """K 0 is refused; K past the register layout takes the column
+    kernel's model, which plans like the reference."""
     z = np.zeros(2, np.float32)
     with pytest.raises(ValueError, match="capacity"):
         tsem.semaphore_admission_model(z, z, 0)
-    with pytest.raises(ValueError, match="capacity"):
-        tsem.semaphore_admission_model(z, z, tsem.MAX_CAPACITY + 1)
+    cap = tsem.REGISTER_CAPACITY + 1
+    arr, hold = _saturating(cap, cap + 150)
+    want = sleeping_semaphore_ref(jnp.asarray(arr), jnp.asarray(hold), cap)
+    got = tsem.semaphore_admission_model(arr, hold, cap)
+    assert int(got[2].sum()) > 0
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(_bits(g), _bits(w))
+
+
+def _saturating(seed, n):
+    rng = np.random.default_rng(seed)
+    return (np.sort(rng.uniform(0.0, 0.5, n)).astype(np.float32),
+            rng.integers(1, 9, n).astype(np.float32))
+
+
+@pytest.mark.parametrize("capacity", [1025, 1100, 2048])
+def test_column_model_equals_plain_version(capacity):
+    """Columns of ceil(K / 32) slots per lane (33, 35 and 64 wide; the
+    last lane's column short at K 1025 and 1100), with waits."""
+    arr, hold = _saturating(capacity, capacity + 400)
+    got = tsem.semaphore_admission_model(arr, hold, capacity)
+    want = tsem.semaphore_admission_plain(torch.from_numpy(arr),
+                                          torch.from_numpy(hold), capacity)
+    assert int(got[2].sum()) > 0
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(_bits(g), _bits(w.numpy()))

@@ -193,10 +193,26 @@ def test_cuda_window_plan_is_one_launch(cuda_device):
             np.float32(want[2]).view(np.int32)
 
 
-def test_cuda_wrapper_refuses_more_requesters_than_it_stages(cuda_device):
-    big = torch.zeros(ttl.MAX_N + 1, device=cuda_device)
-    with pytest.raises(ValueError, match="at most"):
-        ttl.ticket_lock(big.int(), big, big)
+@pytest.mark.parametrize("n", [ttl.STAGED_N + 1, 2 * ttl.STAGED_N])
+def test_cuda_kernel_bit_equal_past_its_staging(cuda_device, n):
+    """Past the shared-memory staging (N 16385, 32768) grant and trace go
+    straight to global memory: still bit-equal, and the window plans."""
+    arr, m, b = _trace(n, n)
+    got = ttl.ticket_lock(*(torch.from_numpy(x).to(cuda_device)
+                            for x in (arr, m, b)))
+    want = ttl.ticket_lock_plain(torch.from_numpy(arr), torch.from_numpy(m),
+                                 torch.from_numpy(b))
+    for g, w in zip(got, want):
+        g, w = g.cpu().numpy(), w.numpy()
+        if g.dtype == np.float32:
+            g, w = g.view(np.int32), w.view(np.int32)
+        np.testing.assert_array_equal(g, w)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        got_w = ttl.ticket_lock_window(arr, m, b, device=cuda_device)
+        want_w = ttl.ticket_lock_window(arr, m, b, device="cpu")
+    np.testing.assert_array_equal(got_w[0], want_w[0])
+    np.testing.assert_array_equal(got_w[1], want_w[1])
 
 
 def test_cuda_window_plans_from_several_threads(cuda_device):

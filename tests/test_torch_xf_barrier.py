@@ -120,9 +120,22 @@ def test_wrapper_checks_shapes_and_devices():
 
 
 def test_size_limit_names_the_limit():
-    txb._check_size(txb.MAX_N)
-    with pytest.raises(ValueError, match=f"at most {txb.MAX_N}"):
-        txb._check_size(txb.MAX_N + 1)
+    """``SHARED_N`` names where the kernel's flags leave shared memory;
+    past it nothing is refused: the window at N SHARED_N + 1 plans like
+    the reference's oracle (a straggler, so done is 0)."""
+    n = txb.SHARED_N + 1
+    present = np.ones(n, np.int32)
+    present[n - 2] = 0
+    ones = np.ones(n, np.int32)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        got = txb.xf_barrier_window(np.zeros(n, np.int32), 1, present,
+                                    ones, window=n, device="cpu")
+    want = xf_barrier_ref(jnp.zeros(n, jnp.int32), jnp.int32(1),
+                          jnp.asarray(present), jnp.asarray(ones))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+    assert int(got[2]) == 0 and np.flatnonzero(got[3]).tolist() == [n - 2]
 
 
 @pytest.mark.parametrize("max_polls", [0, 1])
@@ -190,7 +203,8 @@ def test_cuda_budget_does_not_change_the_result(cuda_device, n, max_polls):
             np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
 
 
-@pytest.mark.parametrize("n", [4096, txb.MAX_N])
+@pytest.mark.parametrize("n", [4096, txb.SHARED_N, txb.SHARED_N + 1,
+                               2 * txb.SHARED_N])
 @pytest.mark.parametrize("max_polls", [0, 1024])
 def test_cuda_large_barriers_equal_to_plain(cuda_device, n, max_polls):
     rng = np.random.default_rng(n + max_polls)
@@ -207,15 +221,30 @@ def test_cuda_large_barriers_equal_to_plain(cuda_device, n, max_polls):
             np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
 
 
-def test_cuda_size_limit_raises(cuda_device):
-    z = torch.zeros(txb.MAX_N + 1, dtype=torch.int32, device=cuda_device)
-    with pytest.raises(ValueError, match=f"at most {txb.MAX_N}"):
-        txb.xf_barrier(z, 1, z, z)
-    with pytest.raises(ValueError, match=f"at most {txb.MAX_N}"):
-        txb.xf_barrier_window(np.zeros(txb.MAX_N + 1, np.int32), 1,
-                              np.ones(txb.MAX_N + 1, np.int32),
-                              np.ones(txb.MAX_N + 1, np.int32),
-                              window=txb.MAX_N + 1, device=cuda_device)
+@pytest.mark.parametrize("max_polls", [0, 1, 1024])
+def test_cuda_plans_past_shared_memory(cuda_device, max_polls):
+    """N 32769 and 65536 (flags in global memory): the tensor call and the
+    window plan equal the plain version, everyone present or not."""
+    for n in (txb.SHARED_N + 1, 2 * txb.SHARED_N):
+        present = np.ones(n, np.int32)
+        for absent in ([], [0, n - 1]):
+            present[absent] = 0
+            ones = np.ones(n, np.int32)
+            ts = [torch.from_numpy(x) for x in (np.zeros(n, np.int32),
+                                                present, ones)]
+            got = txb.xf_barrier(*(t.to(cuda_device) for t in ts[:1]), 1,
+                                 ts[1].to(cuda_device), ts[2].to(cuda_device),
+                                 max_polls=max_polls)
+            want = txb.xf_barrier_plain(ts[0], 1, ts[1], ts[2])
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)
+                got_w = txb.xf_barrier_window(
+                    ts[0].numpy(), 1, present, ones, max_polls=max_polls,
+                    window=n, device=cuda_device)
+            for g, w in zip(got_w, want):
+                np.testing.assert_array_equal(np.asarray(g), w.numpy())
 
 
 @pytest.mark.parametrize("n,window", [(5, 32), (12, 32), (33, 32)])

@@ -122,9 +122,92 @@ def main():
         same &= bool(np.array_equal(jn, nxt))
     rows["LM.decode_step logits (fused, 4 steps)"] = worst
     rows.update(sync_rows())
+    slot_rows, streams = slots_rows(jm, jp, tm, tp)
+    rows.update(slot_rows)
     for name, e in rows.items():
         print(json.dumps({"function": name, "max_abs_err": e}))
     print(json.dumps({"function": "LM greedy tokens", "identical": same}))
+    for name, same in streams.items():
+        print(json.dumps({"function": name, "identical": same}))
+
+
+def slots_rows(jm, jp, tm, tp):
+    """One-shot prefill, the contiguous cache and the default serving
+    path (tests/test_torch_prefill.py, tests/test_torch_slots.py)."""
+    from repro.serve.engine import ServeEngine as JServeEngine
+    from repro.serve.engine import SlotServeEngine as JEngine
+    from repro_torch.serve.engine import ServeEngine, SlotServeEngine
+    rng = np.random.default_rng(7)
+    rows = {}
+    q, k, v = (rng.standard_normal((2, 24, 4, 32)).astype(np.float32)
+               for _ in range(3))
+    rows["blocked_attention (causal, window 5, 3 x 6 blocks)"] = err(
+        ja.blocked_attention(*map(jnp.asarray, (q, k, v)), causal=True,
+                             window=5, q_chunk=8, kv_chunk=4),
+        tattn.blocked_attention(*map(torch.tensor, (q, k, v)), causal=True,
+                                window=5, q_chunk=8, kv_chunk=4))
+    rows["full_attention (causal, one block)"] = err(
+        ja.full_attention(None, jm.cfg, *map(jnp.asarray, (q, k, v)),
+                          causal=True, window=None),
+        tattn.full_attention(None, tm.cfg, *map(torch.tensor, (q, k, v)),
+                             causal=True, window=None))
+    tok = rng.integers(0, 512, (3, 13)).astype(np.int32)
+    rows["LM.forward logits"] = err(
+        jm.forward(jp, {"tokens": jnp.asarray(tok)})[0],
+        tm.forward(tp, {"tokens": torch.tensor(tok)})[0])
+    length = np.array([13, 6, 1], np.int32)
+    jlog, jc = jm.prefill(jp, {"tokens": jnp.asarray(tok)}, max_len=16,
+                          length=jnp.asarray(length))
+    tlog, tc = tm.prefill(tp, {"tokens": torch.tensor(tok)}, max_len=16,
+                          length=torch.tensor(length))
+    rows["LM.prefill logits (length=)"] = err(jlog, tlog)
+    rows["LM.prefill cache (length=)"] = max(
+        err(jc["periods"]["layer_0"][n], tc["periods"]["layer_0"][n])
+        for n in ("k", "v"))
+    nxt = tlog.argmax(-1).numpy().astype(np.int32)
+    worst = 0.0
+    for _ in range(4):        # row 0 reaches max_len 16 and drops
+        jlog, jc = jm.decode_step(jp, jc, jnp.asarray(nxt))
+        tlog, tc = tm.decode_step(tp, tc, torch.tensor(nxt))
+        worst = max(worst, err(jlog, tlog))
+        nxt = tlog.argmax(-1).numpy().astype(np.int32)
+    rows["LM.decode_step logits (contiguous, per-row len, 4 steps)"] = worst
+    arr = np.sort(rng.uniform(0.0, 0.5, 2100)).astype(np.float32)
+    hold = rng.integers(1, 9, 2100).astype(np.float32)
+    want = JSyncLibrary.host_default().plan_semaphore(arr, hold, 2048,
+                                                      backend="ref")
+    got = SyncLibrary.host_default().plan_semaphore(arr, hold, 2048,
+                                                    backend="ref")
+    rows["plan_semaphore ref K 2048 vs JAX ref (grant, release, waited)"] = \
+        max(err(want.grant, got.grant), err(want.release, got.release),
+            err(want.waited, got.waited))
+    streams = {}
+    reqs = [(rng.integers(0, 512, int(rng.integers(3, 15))).astype(
+        np.int32), int(rng.integers(2, 7))) for _ in range(7)]
+    for name, kw in (
+            ("slots one-shot", dict(kv_layout="slots", decode_chunk=2)),
+            ("slots chunked", dict(kv_layout="slots", decode_chunk=2,
+                                   prefill_chunk_tokens=4)),
+            ("paged one-shot eager", dict(kv_layout="paged", page_size=4,
+                                          page_growth="eager",
+                                          prefix_sharing="off"))):
+        out = []
+        for cls, m, prm, extra in ((JEngine, jm, jp, {}),
+                                   (SlotServeEngine, tm, tp,
+                                    {"device": "cpu"})):
+            eng = cls(m, prm, capacity=3, max_len=32, **kw, **extra)
+            hs = [eng.submit(p, n) for p, n in reqs]
+            eng.run_until_done()
+            out.append(([h.out_tokens for h in hs], eng.grant_log))
+        streams[f"SlotServeEngine {name}: streams, grant_log"] = \
+            out[0] == out[1]
+    tok = rng.integers(0, 512, (2, 7)).astype(np.int32)
+    streams["ServeEngine (legacy) tokens"] = (
+        np.asarray(JServeEngine(jm, jp, max_len=16).generate(
+            {"tokens": jnp.asarray(tok)}, 6).tokens).tolist()
+        == ServeEngine(tm, tp, max_len=16).generate(
+            {"tokens": torch.tensor(tok)}, 6).tokens.tolist())
+    return rows, streams
 
 
 def sync_rows():

@@ -2,7 +2,7 @@
 """Drive the PyTorch port's main paths on one CUDA card: serving, and
 the sync library's plans with the paper's kernel benchmarks.
 
-    python3 chip_smoke.py            # phases 1-4, 6 and 7, one card
+    python3 chip_smoke.py            # phases 1-4 and 6-8, one card
 
 Run from the root of a checkout; it needs ``src/repro_torch`` beside it
 and a CUDA card, and exits non-zero without printing a result otherwise.
@@ -33,10 +33,17 @@ JSON line with its seconds:
              (plain versions) from the same weights and requests — the
              main path, the slot arena one-shot and chunked, the paged
              arena one-shot with eager growth, and the legacy engine on
-             two requests: greedy streams and grant logs identical
+             two requests: greedy streams and grant logs identical; then
+             four prefix runs (sharing over a repeated prompt and a
+             boundary prefix, a donor-side split in a partial page, the
+             cache over a two-turn conversation, watermark eviction):
+             streams, grant logs, acquires and the sharing and cache
+             counts identical
   4 serve    full-width qwen3-14b (40 layers, bf16) serving 8 requests
-             through the paged, chunked-prefill, bucketed engine; launch
-             counters prove both kernels carried the path
+             through the paged, chunked-prefill, bucketed engine (prefix
+             sharing on, as the reference resolves it; random prompts
+             share nothing); launch counters prove both kernels carried
+             the path
   5 profile  (only when named: ``--phases 1,5``) six decode rounds of
              the phase-4 workload timed plainly, then six more under
              torch.profiler: device time by kernel and the device's
@@ -56,10 +63,18 @@ JSON line with its seconds:
              chunk 2, phase 4's 8 requests; then the legacy loop on the
              first 2; launch counters prove the admission kernel carried
              the slots path
+  8 prefix   full width with phase 4's weights: 8 requests sharing a
+             128-token preamble, two of them one prompt exactly, staggered
+             arrivals — on the phase-4 engine with sharing on and off, on
+             its one-shot variant (the exact repeat adopts the partial
+             tail page and splits it), and with the prefix cache on over
+             two turns (turn 2 resubmits prompt + reply + 16 tokens);
+             adoptions, splits, cache hits and skipped prefill tokens,
+             no leak after the drain, launch counters over the phase
 
 Then one JSON line naming every kernel with its launches (from phase 4
-for the serving kernels, from phase 6 for the others; each path's in
-``launches_by_path``), times and bound,
+for the serving kernels, from phase 6 for the others; each path's,
+phase 8's among them, in ``launches_by_path``), times and bound,
 and last the device line. Every failed check exits non-zero before the
 last line.
 """
@@ -86,6 +101,12 @@ SERVE = dict(capacity=4, requests=8, prompt_min=64, prompt_max=256,
              new_tokens=16, page_size=16, prefill_chunk=64, decode_chunk=1)
 REDUCED = dict(capacity=3, requests=6, prompt_min=5, prompt_max=24,
                new_tokens=8, page_size=4, prefill_chunk=4, decode_chunk=2)
+# Phase 8's traffic: a shared system prompt (numpy seed 3), requests
+# arriving every ``gap`` scheduler rounds, two of them one prompt
+# exactly (``repeat``: the second repeats the first), and a second turn
+# of ``follow`` new user tokens.
+PREFIX = dict(requests=8, preamble=128, suffix_min=16, suffix_max=64,
+              new_tokens=16, follow=16, gap=3, repeat=(4, 5))
 # The paper's Section-3 cell size: 8 CTAs per SM of 132, 1000 accesses.
 MEMBENCH_CELL = dict(n_steps=1056, repeats=1000)
 
@@ -1050,9 +1071,13 @@ def serve(engine, prompts, new_tokens):
 
 
 def check_drained(engine, reqs, new_tokens, vocab, what):
-    check(all(r.state.value == "finished" and len(r.out_tokens) == new_tokens
-              for r in reqs), f"{what}: a request did not finish with "
-          f"{new_tokens} tokens")
+    """Every request finished with its tokens (``new_tokens``, or each
+    request's own budget when None) from the vocabulary, in FIFO grant
+    order; paged, the pool (and the prefix cache, released after its
+    own check) drains to no page in use."""
+    check(all(r.state.value == "finished" and len(r.out_tokens) == (
+        r.max_new_tokens if new_tokens is None else new_tokens)
+        for r in reqs), f"{what}: a request did not finish with its tokens")
     check(all(0 <= t < vocab for r in reqs for t in r.out_tokens),
           f"{what}: token id out of the vocabulary")
     check(engine.grant_log == sorted(engine.grant_log),
@@ -1060,6 +1085,10 @@ def check_drained(engine, reqs, new_tokens, vocab, what):
     if engine.kv_layout != "paged":
         return
     try:
+        engine.pool.check()
+        if engine.prefix_cache is not None:
+            engine.prefix_cache.check()
+        engine.drop_prefix_cache()
         engine.pool.check()
     except AssertionError as e:
         raise SmokeFailure(f"{what}: page pool inconsistent: {e}")
@@ -1072,7 +1101,8 @@ def phase_parity(out):
     cuda (CUDA kernels) and on cpu (plain versions), same weights and
     requests — the main path (paged, chunked, fused, bucketed), the slot
     arena one-shot and chunked, the paged arena one-shot with eager
-    growth — and the legacy per-request engine on two requests."""
+    growth — then the four prefix runs (``prefix_parity``), and the
+    legacy per-request engine on two requests."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models import build_model
@@ -1115,6 +1145,8 @@ def phase_parity(out):
               f"reduced parity {name}: allocator acquire counts differ")
         res[name] = {"streams_identical": True, "grant_log": runs["cuda"][1],
                      "lock_acquires": runs["cuda"][2]}
+    res.update(prefix_parity(model, {"cuda": params_gpu, "cpu": params_cpu},
+                             c, cfg.vocab_size))
     legacy = {}
     for dev, params in (("cuda", params_gpu), ("cpu", params_cpu)):
         eng = ServeEngine(model, params,
@@ -1189,6 +1221,8 @@ def phase_serve(out):
             "semaphore_completed": st["semaphore_completed"],
             "page_pauses": st["page_pauses"],
             "page_preemptions": st["page_preemptions"],
+            "prefix_sharing": st["prefix_sharing"],
+            "prefix_hits": st["prefix_hits"],
             "dispatch_shapes": st["dispatch_shapes"],
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
 
@@ -1288,6 +1322,246 @@ def phase_slots(out):
                        "tok_per_s": 2 * c["new_tokens"] / legacy_s,
                        "tokens_equal_to_slots": legacy_same
                        / (2 * c["new_tokens"])},
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+# ------------------------------------------------- phases 3 and 8: prefixes
+#: the sharing and cache counts a prefix run reports and compares
+PREFIX_COUNTS = ("prefix_hits", "shared_pages_adopted", "cow_splits",
+                 "cache_hits", "prefill_tokens_saved", "cache_pages_evicted")
+
+
+def serve_trace(engine, arrivals):
+    """Submit each ``(step, prompt, new_tokens)`` once the step clock
+    reaches its step (the clock idles forward while nothing runs) and
+    drain. Returns (requests in arrival order, scheduler rounds, wall
+    seconds ending in a synchronise)."""
+    import torch
+    t0 = time.perf_counter()
+    pending = sorted(arrivals, key=lambda a: a[0])
+    reqs, rounds = [], 0
+    while pending or engine.queue or engine.active:
+        while pending and pending[0][0] <= engine.step_clock:
+            _, prompt, n = pending.pop(0)
+            reqs.append(engine.submit(prompt, n))
+        if engine.queue or engine.active:
+            engine.step()
+            rounds += 1
+        else:
+            engine.step_clock += 1
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    return reqs, rounds, time.perf_counter() - t0
+
+
+def next_turn(reqs, follows, new_tokens):
+    """Each request's prompt + reply + its follow-up tokens, all arriving
+    at once."""
+    import numpy as np
+    return [(0, np.concatenate([r.prompt, np.asarray(r.out_tokens, np.int32),
+                                f]).astype(np.int32), new_tokens)
+            for r, f in zip(reqs, follows)]
+
+
+def reduced_prefix_runs(vocab):
+    """Phase 3's prefix runs on the reduced main path: name ->
+    (engine overrides, drive(engine) -> requests, counts that must be
+    above 0)."""
+    import numpy as np
+    rng = np.random.default_rng(4)
+    a = rng.integers(1, vocab, 10).astype(np.int32)
+    head = rng.integers(1, vocab, 8)
+    b1, b2 = (np.concatenate([head, rng.integers(1, vocab, 4)]).astype(
+        np.int32) for _ in range(2))
+    donor = rng.integers(1, vocab, 9).astype(np.int32)
+    turn1 = rng.integers(1, vocab, 9).astype(np.int32)
+    follow = rng.integers(1, vocab, 5).astype(np.int32)
+    distinct = [rng.integers(1, vocab, 11).astype(np.int32)
+                for _ in range(5)]
+
+    def sharing(eng):
+        return serve_trace(eng, [(0, a, 6), (6, a, 6), (8, b1, 5),
+                                 (14, b2, 5)])[0]
+
+    def split(eng):
+        return serve_trace(eng, [(0, donor, 10), (2, donor, 10)])[0]
+
+    def two_turns(eng):
+        r1 = serve_trace(eng, [(0, turn1, 7)])[0]
+        return r1 + serve_trace(eng, next_turn(r1, [follow], 5))[0]
+
+    def watermark(eng):
+        return serve_trace(eng, [(0, p, 4) for p in distinct])[0]
+    return {
+        "sharing_repeat_and_boundary": (
+            dict(prefix_sharing="on"), sharing,
+            ("prefix_hits", "shared_pages_adopted", "prefill_tokens_saved")),
+        "donor_split_partial_page": (
+            dict(prefix_sharing="on", prefill_chunk_tokens=None,
+                 page_size=8, capacity=2, max_len=32), split,
+            ("prefix_hits", "cow_splits")),
+        "cache_two_turns": (
+            dict(prefix_cache="on", max_len=64), two_turns,
+            ("cache_hits", "prefill_tokens_saved")),
+        "watermark_eviction": (
+            dict(prefix_cache="on", num_pages=14, max_len=32, capacity=2),
+            watermark, ("cache_pages_evicted",)),
+    }
+
+
+def prefix_parity(model, params_by_dev, c, vocab):
+    """Phase 3's prefix runs on each device: streams, grant logs,
+    allocator acquires and the sharing and cache counts identical
+    between them, and each run's own counts above 0."""
+    res = {}
+    for name, (kw, drive, positive) in reduced_prefix_runs(vocab).items():
+        runs = {}
+        for dev, params in params_by_dev.items():
+            eng = make_engine(model, params, c, dev, **kw)
+            reqs = drive(eng)
+            st = eng.stats()
+            check_drained(eng, reqs, None, vocab, f"reduced {name} {dev}")
+            runs[dev] = ({r.rid: r.out_tokens for r in reqs}, eng.grant_log,
+                         st["lock_acquires"],
+                         {k: st.get(k, 0.0) for k in PREFIX_COUNTS})
+        first, *rest = runs.values()
+        check(all(r == first for r in rest),
+              f"reduced parity {name}: streams, grant logs, acquires or "
+              f"prefix counts differ between devices: "
+              f"{ {d: r[1:] for d, r in runs.items()} }")
+        check(all(first[3][k] > 0 for k in positive),
+              f"reduced {name}: want {positive} above 0, got {first[3]}")
+        res[name] = {"identical": True, "grant_log": first[1],
+                     "lock_acquires": first[2], **first[3]}
+    return res
+
+
+def prefix_traffic(vocab, p):
+    """Phase 8's prompts and second-turn follow-ups (numpy seed 3): a
+    common preamble plus a uniform suffix each; request ``repeat[1]``
+    repeats request ``repeat[0]`` exactly, at a length that is not a
+    multiple of the page size 16 (nor of 4, the reduced one)."""
+    import numpy as np
+    rng = np.random.default_rng(3)
+    pre = rng.integers(0, vocab, p["preamble"])
+    prompts = [np.concatenate([pre, rng.integers(0, vocab, int(rng.integers(
+        p["suffix_min"], p["suffix_max"] + 1)))]).astype(np.int32)
+        for _ in range(p["requests"])]
+    i, j = p["repeat"]
+    if prompts[i].size % 16 == 0:
+        prompts[i] = prompts[i][:-1]
+    if prompts[i].size % 4 == 0:
+        prompts[i] = prompts[i][:-1]
+    prompts[j] = prompts[i].copy()
+    follows = [rng.integers(0, vocab, p["follow"]).astype(np.int32)
+               for _ in range(p["requests"])]
+    return prompts, follows
+
+
+def prefix_cell(model, params, c, p, device, vocab):
+    """Phase 8's runs (also callable at a reduced size on the CPU):
+    turn 1 on the main path with sharing on and off, turn 1 on its
+    one-shot variant with sharing on, and turns 1 and 2 with the prefix
+    cache on. Returns ``(engines, per-run records)``; checks every run
+    drained, the counts each run exists to show, and that sharing adds
+    no allocator acquire."""
+    prompts, follows = prefix_traffic(vocab, p)
+    max_len = (p["preamble"] + p["suffix_max"] + 2 * p["new_tokens"]
+               + p["follow"] + 1)
+    turn1 = [(p["gap"] * k, q, p["new_tokens"]) for k, q in
+             enumerate(prompts)]
+    runs = {"sharing_on": dict(), "sharing_off": dict(prefix_sharing="off"),
+            "oneshot_sharing_on": dict(prefill_chunk_tokens=None),
+            "cache_on": dict(prefix_cache="on")}
+    engines, rec = {}, {}
+    for name, kw in runs.items():
+        eng = make_engine(model, params, c, device, max_len=max_len, **kw)
+        reqs, rounds, dt = serve_trace(eng, turn1)
+        turns = {"turn1": (reqs, rounds, dt)}
+        if name == "cache_on":
+            turns["turn2"] = serve_trace(eng, next_turn(
+                reqs, follows, p["new_tokens"]))
+        st = eng.stats()
+        all_reqs = [r for t in turns.values() for r in t[0]]
+        check_drained(eng, all_reqs, None, vocab, f"prefix {name}")
+        check(eng.grant_log == [r.rid for r in all_reqs],
+              f"prefix {name}: grant log {eng.grant_log}")
+        engines[name] = eng
+        rec[name] = {
+            "streams": {r.rid: list(r.out_tokens) for r in all_reqs},
+            "wall_s": {t: v[2] for t, v in turns.items()},
+            "tok_per_s": {t: sum(len(r.out_tokens) for r in v[0]) / v[2]
+                          for t, v in turns.items()},
+            "rounds": sum(v[1] for v in turns.values()),
+            "decode_steps": eng.decode_steps_run,
+            "lock_acquires": st["lock_acquires"],
+            "acquires_per_round": st["lock_acquires"] / max(
+                sum(v[1] for v in turns.values()), 1),
+            "pages_alloced": st["pages_alloced"],
+            **{k: st.get(k, 0.0) for k in PREFIX_COUNTS}}
+    on, off = rec["sharing_on"], rec["sharing_off"]
+    check(on["shared_pages_adopted"] > 0 and on["prefill_tokens_saved"] > 0,
+          f"prefix sharing_on: nothing adopted or skipped: {on}")
+    one = rec["oneshot_sharing_on"]
+    check(one["shared_pages_adopted"] > 0 and one["cow_splits"] > 0,
+          f"prefix oneshot_sharing_on: no adoption or no split: {one}")
+    cache = rec["cache_on"]
+    check(cache["cache_hits"] > 0 and cache["prefill_tokens_saved"] > 0,
+          f"prefix cache_on: no cache hit or nothing skipped: {cache}")
+    # sharing rides the existing sections: no more acquires in all, and
+    # at most the three sections a round has (admission, page prep,
+    # retirement). Per round is reported, not compared: skipped chunks
+    # shorten the run, so the same acquires spread over fewer rounds.
+    check(on["lock_acquires"] <= off["lock_acquires"],
+          f"prefix: sharing added allocator acquires ({on['lock_acquires']} "
+          f"in {on['rounds']} rounds vs {off['lock_acquires']} in "
+          f"{off['rounds']})")
+    check(all(r["acquires_per_round"] <= 3 for r in rec.values()),
+          f"prefix: more than 3 allocator acquires a round: "
+          f"{ {n: r['acquires_per_round'] for n, r in rec.items()} }")
+    return engines, rec
+
+
+def phase_prefix(out):
+    """Full-width qwen3-14b with phase 4's weights through the phase-4
+    engine with prefix sharing and the prefix cache (``prefix_cell``);
+    the launch counters are zeroed just before the runs and read just
+    after: the decode kernel must have run 40 times a decode step, the
+    admission kernel at least once. The share of turn-1 tokens equal
+    with sharing on and off is information (bf16 at full width: a shifted
+    chunk boundary can flip an argmax), not a check."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    cfg = get_arch("qwen3-14b")
+    if "serve_weights" in out:
+        model, params, _, _ = out["serve_weights"]
+    else:                      # run without phase 4: the same draw
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                            "cuda")
+    counters = _counters()
+    for k in counters.values():
+        k.launches = 0
+    engines, rec = prefix_cell(model, params, SERVE, PREFIX, "cuda",
+                               cfg.vocab_size)
+    launches = {name: k.launches for name, k in counters.items()}
+    steps = sum(e.decode_steps_run for e in engines.values())
+    check(launches["paged_decode"] == cfg.num_layers * steps,
+          f"prefix: paged_decode launched {launches['paged_decode']} times, "
+          f"want {cfg.num_layers} x {steps} decode steps")
+    check(launches["semaphore_admission"] > 0,
+          "semaphore_admission never launched on the prefix path")
+    out["launches_prefix"] = launches
+    on, off = rec["sharing_on"]["streams"], rec["sharing_off"]["streams"]
+    total = sum(len(v) for v in on.values())
+    same = sum(a == b for rid in on for a, b in zip(on[rid], off[rid]))
+    del engines
+    return {"arch": cfg.name, "settings": PREFIX, "engine": SERVE,
+            "launches": launches, "decode_steps": steps,
+            "turn1_tokens_equal_on_off": same / total,
+            "runs": {n: {k: v for k, v in r.items() if k != "streams"}
+                     for n, r in rec.items()},
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
@@ -1534,6 +1808,7 @@ def kernels_line(out):
                          p: out[key].get(name, 0) for p, key in (
                              ("serve_paged", "launches"),
                              ("serve_slots", "launches_slots"),
+                             ("prefix", "launches_prefix"),
                              ("primitives", "launches_primitives"))
                          if key in out},
                      **{key: k[key] for key in (
@@ -1542,6 +1817,7 @@ def kernels_line(out):
                          "past_shared_memory") if key in k}})
     return {"kernels": rows, "launches": out.get("launches", {}),
             "launches_slots": out.get("launches_slots", {}),
+            "launches_prefix": out.get("launches_prefix", {}),
             "launches_primitives": out.get("launches_primitives", {}),
             "card": out.get("card")}
 
@@ -1549,14 +1825,14 @@ def kernels_line(out):
 PHASES = {1: ("card", phase_card), 2: ("kernels", phase_kernels),
           3: ("parity", phase_parity), 4: ("serve", phase_serve),
           5: ("profile", phase_profile), 6: ("primitives", phase_primitives),
-          7: ("slots", phase_slots)}
+          7: ("slots", phase_slots), 8: ("prefix", phase_prefix)}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,6,7",
-                    help="comma-separated phases to run (default: 1-4, 6 "
-                         "and 7; 5, the profile, runs only when named)")
+    ap.add_argument("--phases", default="1,2,3,4,6,7,8",
+                    help="comma-separated phases to run (default: 1-4 and "
+                         "6-8; 5, the profile, runs only when named)")
     ap.add_argument("--profile-layout", default="paged",
                     choices=("paged", "slots"),
                     help="the engine phase 5 profiles: the main path "

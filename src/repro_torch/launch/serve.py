@@ -15,12 +15,15 @@ round. ``--kv-layout paged`` swaps in the block-table page arena, whose
 allocator runs under the Algorithm-3 ticket mutex (``--page-growth``,
 ``--page-size``, ``--attention-impl fused`` for the fused paged-decode
 kernel); ``--prefill-chunk-tokens C`` prefills C prompt tokens per round
-inside the decode dispatch instead. ``--legacy`` also runs the old
-per-request loop on the same prompts and prints the comparison.
-Weights are random, drawn on the device from ``--seed``; prompts come
-from a numpy generator seeded the same way. ``--smoke`` serves the
-reduced config. After a paged drain a hard leak gate fails the run if
-any page is still in use.
+inside the decode dispatch instead. On the paged layout
+``--prefix-sharing`` (default ``auto``: on) lets a prompt adopt the
+pages of a live prompt with the same prefix, copy-on-write, and
+``--prefix-cache`` (default ``off``) keeps retired requests' pages in an
+LRU trie for later prompts. ``--legacy`` also runs the old per-request
+loop on the same prompts and prints the comparison. Weights are random,
+drawn on the device from ``--seed``; prompts come from a numpy generator
+seeded the same way. ``--smoke`` serves the reduced config. After a paged drain (and the prefix cache's
+release) a hard leak gate fails the run if any page is still in use.
 """
 
 from __future__ import annotations
@@ -57,6 +60,9 @@ def make_engine(model, params, args, device, sync=None) -> SlotServeEngine:
         decode_chunk=args.decode_chunk, kv_layout=args.kv_layout,
         page_size=args.page_size, num_pages=args.num_pages,
         page_growth=args.page_growth,
+        prefix_sharing=args.prefix_sharing,
+        prefix_cache=args.prefix_cache,
+        cache_watermark=args.cache_watermark,
         prefill_chunk_tokens=args.prefill_chunk_tokens,
         round_token_budget=args.round_token_budget,
         attention_impl=args.attention_impl,
@@ -67,9 +73,12 @@ def make_engine(model, params, args, device, sync=None) -> SlotServeEngine:
 
 def enforce_leak_gate(engine) -> None:
     """Hard post-drain leak gate: a page still in use after a full drain
-    fails the run with a non-zero exit (the slot layout has no pages)."""
+    fails the run with a non-zero exit (the slot layout has no pages).
+    The prefix cache's pages are retained on purpose, so it is released
+    first."""
     if engine.kv_layout != "paged":
         return
+    engine.drop_prefix_cache()
     try:
         engine.pool.check()
     except (PageLeakError, AssertionError) as e:
@@ -150,6 +159,18 @@ def parser() -> argparse.ArgumentParser:
                          "slot advances per scheduler round, inside the "
                          "decode dispatch (default: one-shot prefill at "
                          "admission)")
+    ap.add_argument("--prefix-sharing", default="auto",
+                    choices=("auto", "on", "off"),
+                    help="copy-on-write prompt-prefix sharing on the paged "
+                         "arena (auto = on for the paged layout)")
+    ap.add_argument("--prefix-cache", default="off",
+                    choices=("auto", "on", "off"),
+                    help="retain retired requests' full pages in an LRU "
+                         "prefix trie for later prompts (paged; auto = on "
+                         "for the paged layout)")
+    ap.add_argument("--cache-watermark", type=float, default=None,
+                    help="free-page share the prefix cache's eviction "
+                         "defends (default: the admission headroom)")
     ap.add_argument("--round-token-budget", type=int, default=None,
                     help="per-round token budget: decode rows first, then "
                          "prefill chunks (default: every slot funded)")
@@ -217,6 +238,21 @@ def main(argv=None) -> SlotServeEngine:
               f"{st['per_page_lock_acquires_per_token']:.4f} one-per-page; "
               f"{int(st['page_pauses'])} pauses, "
               f"{int(st['page_preemptions'])} preemptions")
+        share = "on" if engine.prefix_sharing else "off"
+        print(f"[serve] prefix sharing {share}: "
+              f"{int(st['prefix_hits'])} hits, "
+              f"{int(st['shared_pages_adopted'])} pages adopted, "
+              f"{int(st['cow_splits'])} CoW splits, "
+              f"{st['pages_per_token']:.3f} pages alloc'd per token")
+        if engine.prefix_cache is not None:
+            print(f"[serve] prefix cache: "
+                  f"{int(st['cache_hits'])} hits "
+                  f"(rate {st['cache_hit_rate']:.2f}), "
+                  f"{int(st['cache_tokens_served'])} tokens served, "
+                  f"{int(st['prefill_tokens_saved'])} prefill tokens "
+                  f"saved; {int(st['cache_pages_held'])} pages held / "
+                  f"{int(st['cache_pages_donated'])} donated / "
+                  f"{int(st['cache_pages_evicted'])} evicted")
     fifo_ok = engine.grant_log == sorted(engine.grant_log)
     print(f"[serve] FIFO grant order: {'OK' if fifo_ok else 'VIOLATED'} "
           f"({len(engine.grant_log)} grants; semaphore admitted "

@@ -34,6 +34,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.paged_attention import paged_decode_fused
@@ -249,6 +250,51 @@ def gather_pages(arena: torch.Tensor, pages: torch.Tensor) -> torch.Tensor:
     g = arena[pages.long().clamp(0, num_pages - 1)]
     b, p_cap, ps = g.shape[:3]
     return g.reshape((b, p_cap * ps) + tuple(g.shape[3:]))
+
+
+def page_copy_ids(src, dst, num_pages: int, device) -> Optional[torch.Tensor]:
+    """Host half of :func:`copy_pages`: the ``[2, n]`` int64 (src, dst)
+    lanes that copy, on ``device``, uploaded in one transfer — or None
+    when no lane copies. ``src``/``dst`` are host ids (numpy or CPU
+    tensors). A lane whose ``dst`` is a sentinel (outside ``[0,
+    num_pages)``) drops, as the reference's scatter drops it; a live
+    lane must read a page of the arena, and no two live lanes may write
+    one page (``index_copy_`` leaves duplicates undefined; the split
+    plan never makes one)."""
+    src = np.asarray(src, np.int64).reshape(-1)
+    dst = np.asarray(dst, np.int64).reshape(-1)
+    if src.shape != dst.shape:
+        raise ValueError(f"src {src.shape} and dst {dst.shape} differ")
+    live = (dst >= 0) & (dst < num_pages)
+    src, dst = src[live], dst[live]
+    if not dst.size:
+        return None
+    assert ((src >= 0) & (src < num_pages)).all(), \
+        f"copy from a page outside the arena [0, {num_pages}): {src}"
+    assert np.unique(dst).size == dst.size, f"duplicate copy target: {dst}"
+    return torch.from_numpy(np.stack([src, dst])).to(device)
+
+
+def copy_planned(arena: torch.Tensor, ids: Optional[torch.Tensor],
+                 axis: int = 0) -> torch.Tensor:
+    """Copy pages ``ids[0, i] -> ids[1, i]`` along the arena's page axis
+    ``axis``, in place (one gather and one scatter for every layer a
+    period-stacked leaf holds). Source and target pages never overlap:
+    the targets are fresh grants. Returns the arena."""
+    if ids is not None:
+        arena.index_copy_(axis, ids[1], arena.index_select(axis, ids[0]))
+    return arena
+
+
+def copy_pages(arena: torch.Tensor, src, dst, axis: int = 0) -> torch.Tensor:
+    """Copy whole pages ``src[i] -> dst[i]`` within one arena, in place —
+    the device half of a copy-on-write split. arena ``[..., num_pages,
+    ps, ...]`` with the page axis at ``axis``; src/dst ``[n]`` host ids.
+    Stream order puts the copy before the next dispatch that reads the
+    repointed table, so nobody sees a half-copied page."""
+    return copy_planned(
+        arena, page_copy_ids(src, dst, arena.shape[axis], arena.device),
+        axis)
 
 
 class PageWritePlan(NamedTuple):

@@ -32,12 +32,22 @@ runs scheduler rounds:
     frozen decode steps write scratch K/V where the chunk writes, so the
     chunk must land after them;
   * **retirement** — every finished row leaves its slot (paged: every
-    row's pages return in one ``free_batch``).
+    row's pages return in one ``free_batch``; with the prefix cache on,
+    its full written pages are donated to the cache first).
+
+**Prefix sharing** (paged; ``prefix_sharing="auto"`` turns it on there,
+as the reference does): admission looks each granted prompt up in the
+live ``PrefixIndex`` and, when on, the retained ``PrefixCache``, and
+adopts the matched pages by an incref riding the admission grant's
+critical section; a prefix hit never jumps the FIFO. A slot about to
+write a shared page gets a private copy in the round's page-prep section
+(the CoW split, with the keeper rule), or pauses. Refcounts, tables and
+split plans are host state: the split adds one index upload a round
+that splits, and no device read.
 
 Decoding is greedy. Outside this slice — and raising "not ported yet"
-at construction rather than silently dropping anything: sampling,
-prefix sharing and the prefix cache (which the reference turns on for
-the paged layout), fault injection, cancellation and deadlines.
+rather than silently dropping anything: sampling, fault injection,
+cancellation and deadlines.
 
 The reference relies on JAX's dropping scatters; the port masks lanes
 out *before* each scatter instead: the ``_DROP_POS`` write sentinel and
@@ -52,6 +62,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import enum
+import math
 import time
 from typing import Deque, Dict, List, Optional, Tuple
 
@@ -60,8 +71,9 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.serve.dispatch import DecodeDispatchCache
-from repro_torch.serve.kv_pages import PagedSlotPool
+from repro_torch.serve.kv_pages import PagedSlotPool, PrefixIndex
 from repro_torch.serve.kv_slots import SlotPool
+from repro_torch.serve.prefix_cache import PrefixCache, cache_key_suffix
 from repro_torch.serve.scheduler import (AdmissionController,
                                          allocator_contention, plan_round)
 from repro_torch.sync import SyncLibrary
@@ -189,7 +201,11 @@ class SlotServeEngine:
     On the paged layout ``page_growth`` is ``"lazy"`` or ``"eager"``,
     ``attention_impl="fused"`` decodes through the fused paged-decode
     kernel (``"gather"`` through gather-then-attend), and bucketed
-    dispatch (``"auto"``) is on.
+    dispatch (``"auto"``) is on. ``prefix_sharing`` ("auto": on for the
+    paged layout) and ``prefix_cache`` ("off" by default; "auto": on for
+    the paged layout) resolve as the reference's; ``cache_watermark`` is
+    the free-page share the cache's eviction defends (default the
+    admission headroom).
     """
 
     def __init__(self, model, params, *, capacity: int, max_len: int,
@@ -206,8 +222,9 @@ class SlotServeEngine:
                  admit_headroom: float = 0.1,
                  page_lookahead_chunks: int = 2,
                  allocator_wait: Optional[str] = None,
-                 prefix_sharing: str = "off",
+                 prefix_sharing: str = "auto",
                  prefix_cache: str = "off",
+                 cache_watermark: Optional[float] = None,
                  prefill_chunk_tokens: Optional[int] = None,
                  round_token_budget: Optional[int] = None,
                  fault_plan=None,
@@ -236,24 +253,22 @@ class SlotServeEngine:
             raise ValueError(
                 "bucketed_dispatch='on' requires kv_layout='paged', "
                 "greedy decoding, and attention-only layers")
-        for name, val in (("prefix_sharing", prefix_sharing),
-                          ("prefix_cache", prefix_cache)):
-            if val not in ("auto", "on", "off"):
-                raise ValueError(f"unknown {name} {val!r}; expected auto, "
-                                 f"on, or off")
-            if val == "on" and kv_layout != "paged":
-                raise ValueError(f"{name} requires kv_layout='paged' (the "
-                                 f"contiguous arena has no pages to share)")
+        if prefix_sharing not in ("auto", "on", "off"):
+            raise ValueError(
+                f"unknown prefix_sharing {prefix_sharing!r}; "
+                f"expected auto, on, or off")
+        if prefix_sharing == "on" and kv_layout != "paged":
+            raise ValueError("prefix_sharing requires kv_layout='paged' "
+                             "(the contiguous arena has no pages to share)")
+        if prefix_cache not in ("auto", "on", "off"):
+            raise ValueError(
+                f"unknown prefix_cache {prefix_cache!r}; "
+                f"expected auto, on, or off")
+        if prefix_cache == "on" and kv_layout != "paged":
+            raise ValueError("prefix_cache requires kv_layout='paged' "
+                             "(the contiguous arena has no pages to retain)")
         if temperature > 0.0:
             _not_ported("sampling (temperature > 0)")
-        # greedy, attention-only: "auto" turns sharing and the prefix
-        # cache on exactly where the reference does — the paged layout
-        if prefix_sharing == "on" or (prefix_sharing == "auto"
-                                      and kv_layout == "paged"):
-            _not_ported("prefix sharing (pass prefix_sharing='off')")
-        if prefix_cache == "on" or (prefix_cache == "auto"
-                                    and kv_layout == "paged"):
-            _not_ported("the prefix cache")
         if fault_plan is not None:
             _not_ported("fault injection")
         chunk = int(prefill_chunk_tokens) if prefill_chunk_tokens else 0
@@ -289,6 +304,15 @@ class SlotServeEngine:
         self.round_token_budget = (
             int(round_token_budget) if round_token_budget
             else capacity * (decode_chunk + chunk))
+        # greedy and attention-only, so "auto" turns sharing and the
+        # cache on exactly where the reference does: the paged layout
+        self.prefix_sharing = prefix_sharing == "on" or (
+            prefix_sharing == "auto" and self.paged)
+        cache_on = prefix_cache == "on" or (prefix_cache == "auto"
+                                            and self.paged)
+        self.cache_watermark = (float(cache_watermark)
+                                if cache_watermark is not None
+                                else float(admit_headroom))
         self.admit_headroom = float(admit_headroom)
         self.page_lookahead_chunks = max(int(page_lookahead_chunks), 1)
         if self.paged:
@@ -306,6 +330,15 @@ class SlotServeEngine:
             self.sync.semaphore_planner(capacity, window=self.plan_window,
                                         device=self.device)
             if use_admission_kernel else None)
+        self.prefix_index = (PrefixIndex(self.pool.page_size,
+                                         self.pool.pages)
+                             if self.prefix_sharing else None)
+        self.prefix_cache = (PrefixCache(self.pool.page_size,
+                                         self.pool.pages)
+                             if cache_on else None)
+        if self.prefix_cache is not None:
+            # the trie's references live outside the block tables
+            self.pool.register_external_holder(self.prefix_cache.holders)
         self.queue: Deque[ServeRequest] = collections.deque()
         self.active: Dict[int, ServeRequest] = {}      # slot -> request
         self.finished: List[ServeRequest] = []
@@ -315,6 +348,12 @@ class SlotServeEngine:
         self.decode_steps_run = 0   # model decode steps (each: every layer)
         self.pauses = 0
         self.preemptions = 0
+        self.prefix_hits = 0     # admissions that adopted a prefix
+        self.shared_pages_adopted = 0   # pages incref'd instead of granted
+        self.cache_hits = 0      # admissions that adopted a cached prefix
+        self.cache_tokens_served = 0    # flat positions served from cache
+        self.prefill_tokens_saved = 0   # chunked prompt tokens skipped
+        self.cow_splits = 0      # private copies made on divergent writes
         self.prefill_tokens = 0
         self.pad_tokens = 0
         self.prefill_chunks = 0
@@ -329,6 +368,13 @@ class SlotServeEngine:
         self._pf_end = np.zeros(capacity, np.int64)
         # lazy top-up cap: the flat positions the request can touch
         self._grow_cap = np.zeros(capacity, np.int64)
+        # full pages of each decoding slot's prompt + reply registered in
+        # the live index (generated-boundary registration, cache on)
+        self._gen_reg = np.zeros(capacity, np.int64)
+        #: page groups whose references must drop in the round's next
+        #: allocator section (cache evictions planned for an admission
+        #: that staged nobody)
+        self._deferred_free: List[np.ndarray] = []
 
     # ------------------------------------------------------------ submission
     def submit(self, prompt, max_new_tokens: int, rid: Optional[int] = None,
@@ -397,6 +443,10 @@ class SlotServeEngine:
     def _headroom_pages(self) -> int:
         return int(np.ceil(self.admit_headroom * self.pool.pages.num_pages))
 
+    def _watermark_pages(self) -> int:
+        """The free-page floor the prefix cache's eviction defends."""
+        return int(np.ceil(self.cache_watermark * self.pool.pages.num_pages))
+
     def _prefill_impl(self, tokens: torch.Tensor,
                       length: Optional[torch.Tensor], pad_to: int):
         """One-shot prefill of a right-padded ``[1, bucket]`` prompt; the
@@ -405,20 +455,99 @@ class SlotServeEngine:
         return self.model.prefill(self.params, {"tokens": tokens},
                                   max_len=pad_to, length=length)
 
+    def _lookup_prefix(self, prompt, bucket: int, schedule: int
+                       ) -> Tuple[int, Optional[np.ndarray], bool]:
+        """Longest prefix match across the live index and the retained
+        cache: ``(matched_tokens, page_ids, from_cache)``. Ties go to the
+        cache (a live entry for a retiree's pages is valid only because
+        the cache retains them; crediting the cache keeps its LRU clock
+        honest); a strictly longer live match, such as a partial tail
+        past the cache's page granularity, wins."""
+        sh_len, sh_ids = 0, None
+        if self.prefix_sharing:
+            sh_len, sh_ids = self.prefix_index.lookup(prompt, bucket,
+                                                      schedule=schedule)
+        from_cache = False
+        if self.prefix_cache is not None:
+            c_len, c_ids = self.prefix_cache.lookup(
+                prompt, cache_key_suffix(bucket, schedule))
+            if c_ids is not None and c_len >= sh_len:
+                sh_len, sh_ids, from_cache = c_len, c_ids, True
+        return sh_len, sh_ids, from_cache
+
+    def _plan_evictions(self, deficit: int) -> Tuple[List[np.ndarray], int]:
+        """The cache's LRU plan for ``deficit`` reclaimable pages; the
+        caller hands every group to its next allocator section (the trie
+        already forgot them)."""
+        if (self.prefix_cache is None or deficit <= 0
+                or self.prefix_cache.pages_held <= 0):
+            return [], 0
+        return self.prefix_cache.evict_plan(deficit)
+
+    def _evict_credit(self, evict_groups: List[np.ndarray],
+                      adopt_groups) -> int:
+        """Pages the planned evictions will really free: refcount 1 and
+        not re-adopted by the same batch (recomputed at every gate)."""
+        if not evict_groups:
+            return 0
+        adopt = {int(p) for g in adopt_groups if g is not None
+                 for p in np.asarray(g).reshape(-1)}
+        credit = 0
+        for g in evict_groups:
+            rc = self.pool.pages.refcounts(g)
+            credit += sum(1 for p, r in zip(g.tolist(), rc.tolist())
+                          if r == 1 and int(p) not in adopt)
+        return credit
+
+    def _gate(self, staged_pages, evict_groups, adopt_groups, n_shared,
+              pick, deficit_tokens) -> Optional[int]:
+        """Admission's page gate for the FIFO head: ``pick(extra_free)``
+        gives the grant (tokens) that fits or None. Short on pages, the
+        cache's LRU covers the deficit of ``deficit_tokens``; its
+        evictions join ``evict_groups`` and ride the batch's grant."""
+        credit = self._evict_credit(evict_groups, adopt_groups)
+        grant = pick(credit)
+        if grant is None:
+            deficit = (
+                max(self.pool.pages.pages_for(deficit_tokens) - n_shared, 0)
+                + staged_pages + self._headroom_pages()
+                - self.pool.pages.n_free - credit)
+            groups, _ = self._plan_evictions(deficit)
+            evict_groups.extend(groups)
+            grant = pick(self._evict_credit(evict_groups, adopt_groups))
+        return grant
+
+    def _count_adoption(self, sh_ids, sh_len, from_cache,
+                        skipped: bool) -> None:
+        if sh_ids is None or not sh_ids.size:
+            return
+        self.prefix_hits += 1
+        self.shared_pages_adopted += int(sh_ids.size)
+        if skipped:
+            # adopted chunks are never dispatched, whichever index matched
+            self.prefill_tokens_saved += sh_len
+        if from_cache:
+            self.cache_hits += 1
+            self.cache_tokens_served += sh_len
+
     def _admit(self) -> int:
         """One-shot admission of the FIFO front the Algorithm-5 timeline
         grants now: slots first, then (paged) every page grant of the
-        batch in ONE allocator critical section — the prefill bucket
-        plus a decode lookahead under lazy growth, the worst case under
-        eager growth — then each request's whole-prompt prefill into its
-        slot and its first token. A page-starved FIFO head waits for
-        retirements; later requests do not jump it."""
+        batch — private pages, prefix-adoption increfs and cache
+        evictions — in ONE allocator critical section, then each
+        request's whole-prompt prefill into its slot and its first
+        token. The prefill bucket plus a decode lookahead is granted
+        under lazy growth, the worst case under eager growth. A
+        page-starved FIFO head waits for retirements; later requests do
+        not jump it, a prefix hit included. Requests of one batch cannot
+        adopt from each other: the index warms for the next round."""
         if self.prefill_chunk:
             return self._admit_chunked()
         had_decoders = bool(self.active)
         n_admit = self._planned_admit_count()
-        staged = []                      # (req, slot, lp, bucket, reserve,
-        staged_pages = 0                 #  grant)
+        staged = []       # (req, slot, lp, bucket, reserve, grant, sh_ids,
+        staged_pages = 0  #  sh_len, from_cache)
+        evict_groups: List[np.ndarray] = []
         lazy = self.paged and self.page_growth == "lazy"
         while len(staged) < n_admit and self.queue and self.pool.n_free:
             req = self.queue[0]
@@ -429,14 +558,25 @@ class SlotServeEngine:
             grant = (max(bucket, min(bucket + self.decode_chunk
                                      * self.page_lookahead_chunks, need))
                      if lazy else reserve)
-            if self.paged and not (
-                    self.pool.can_admit_lazy(
-                        grant, reserve, headroom_pages=self._headroom_pages(),
-                        pending_pages=staged_pages)
-                    if lazy else
-                    self.pool.can_reserve(reserve,
-                                          pending_pages=staged_pages)):
-                break
+            sh_len, sh_ids, from_cache = self._lookup_prefix(
+                req.prompt, bucket, 0)
+            n_shared = 0 if sh_ids is None else int(sh_ids.size)
+            if self.paged:
+                def pick(extra: int) -> Optional[int]:
+                    ok = (self.pool.can_admit_lazy(
+                              grant, reserve,
+                              headroom_pages=self._headroom_pages(),
+                              pending_pages=staged_pages,
+                              shared_pages=n_shared, extra_free=extra)
+                          if lazy else
+                          self.pool.can_reserve(
+                              reserve, pending_pages=staged_pages,
+                              shared_pages=n_shared, extra_free=extra))
+                    return grant if ok else None
+                if self._gate(staged_pages, evict_groups,
+                              [t[6] for t in staged] + [sh_ids], n_shared,
+                              pick, grant) is None:
+                    break
             self.queue.popleft()
             # Algorithm-5 wait(): never blocks — the planner only granted
             # as many requests as there are free slots
@@ -444,18 +584,24 @@ class SlotServeEngine:
                 self.queue.appendleft(req)
                 break
             slot = self.pool.acquire(req.rid)
-            staged.append((req, slot, lp, bucket, reserve, grant))
+            staged.append((req, slot, lp, bucket, reserve, grant,
+                           sh_ids, sh_len, from_cache))
             if self.paged:
-                staged_pages += self.pool.pages.pages_for(grant)
+                staged_pages += max(
+                    self.pool.pages.pages_for(grant) - n_shared, 0)
         if not staged:
+            # planned evictions must still land: they ride the round's
+            # retirement section
+            self._deferred_free.extend(evict_groups)
             return 0
         grants = (self.pool.reserve_batch(
-            [(slot, grant) for (_, slot, _, _, _, grant) in staged])
+            [(t[1], t[5]) for t in staged], shared=[t[6] for t in staged],
+            evict=evict_groups or None)
             if self.paged else [None] * len(staged))
         instant = []                 # eos / no budget on the prefill token
         dev = self.device
-        for (req, slot, lp, bucket, reserve, grant), ids in zip(staged,
-                                                                 grants):
+        for (req, slot, lp, bucket, reserve, grant, sh_ids, sh_len,
+             from_cache), ids in zip(staged, grants):
             padded = np.zeros(bucket, np.int32)
             padded[:lp] = req.prompt
             length = (torch.tensor([lp], dtype=torch.int32, device=dev)
@@ -467,7 +613,15 @@ class SlotServeEngine:
             self.pad_tokens += bucket - lp
             tok0 = int(torch.argmax(logits[0]))
             if self.paged:
-                self.pool.insert(slot, cache, lp, reserve=grant, ids=ids)
+                self.pool.insert(slot, cache, lp, reserve=grant, ids=ids,
+                                 shared_ids=sh_ids, shared_len=sh_len)
+                self._count_adoption(sh_ids, sh_len, from_cache, False)
+                if self.prefix_sharing:
+                    self.prefix_index.register(
+                        req.prompt, bucket,
+                        self.pool.page_ids(slot,
+                                           self.pool.pages.pages_for(lp)))
+                self._gen_reg[slot] = lp // self.pool.page_size
             else:
                 self.pool.insert(slot, cache, lp, reserve=reserve)
             self._last_tok[slot] = tok0
@@ -500,10 +654,17 @@ class SlotServeEngine:
         the decode lookahead when pages allow, else a chunk-lookahead
         window, else the first chunk — or the worst case under eager
         growth, and one allocator critical section covers the batch.
-        The slot layout needs no pages."""
+        The slot layout needs no pages.
+
+        An adopted prefix is keyed ``schedule=C`` and trimmed to a
+        multiple of lcm(page_size, C), so adoption skips whole chunks
+        and every resumed chunk stays canonically aligned; the last
+        chunk stays private (the first token's logits come from a chunk
+        this engine runs)."""
         n_admit = self._planned_admit_count()
-        staged = []                      # (req, slot, lp, grant)
+        staged = []       # (req, slot, lp, grant, sh_ids, sh_len, from_cache)
         staged_pages = 0
+        evict_groups: List[np.ndarray] = []
         C = self.prefill_chunk
         look = self.page_lookahead_chunks
         lazy = self.paged and self.page_growth == "lazy"
@@ -512,41 +673,69 @@ class SlotServeEngine:
             lp = int(req.prompt.size)
             need = max(lp + req.max_new_tokens - 1, lp)
             reserve = lp + req.max_new_tokens + 1
+            sh_len, sh_ids, from_cache = self._lookup_prefix(req.prompt, 0,
+                                                             C)
+            if sh_ids is not None:
+                ps = self.pool.page_size
+                align = ps * C // math.gcd(ps, C)
+                keep = (min(sh_len, lp - 1) // align) * align
+                if keep // ps <= 0:
+                    sh_len, sh_ids, from_cache = 0, None, False
+                else:
+                    sh_ids, sh_len = sh_ids[:keep // ps], keep
+            n_shared = 0 if sh_ids is None else int(sh_ids.size)
             grant = 0
-            if lazy:
-                first = min(C, need)
-                window = min(C * look, need)
+            if self.paged:
+                first = min(sh_len + C, need)
+                window = min(sh_len + C * look, need)
                 generous = min(max(lp, first) + self.decode_chunk * look,
                                need)
-                grant = next(
-                    (g for g in (generous, window, first)
-                     if self.pool.can_admit_lazy(
-                         g, reserve, headroom_pages=self._headroom_pages(),
-                         pending_pages=staged_pages)), None)
-            elif self.paged:
-                grant = (reserve if self.pool.can_reserve(
-                    reserve, pending_pages=staged_pages) else None)
-            if grant is None:
-                break
+
+                def pick(extra: int) -> Optional[int]:
+                    if lazy:
+                        return next(
+                            (g for g in (generous, window, first)
+                             if self.pool.can_admit_lazy(
+                                 g, reserve,
+                                 headroom_pages=self._headroom_pages(),
+                                 pending_pages=staged_pages,
+                                 shared_pages=n_shared, extra_free=extra)),
+                            None)
+                    return (reserve if self.pool.can_reserve(
+                        reserve, pending_pages=staged_pages,
+                        shared_pages=n_shared, extra_free=extra) else None)
+                grant = self._gate(staged_pages, evict_groups,
+                                   [t[4] for t in staged] + [sh_ids],
+                                   n_shared, pick,
+                                   first if lazy else reserve)
+                if grant is None:
+                    break
             self.queue.popleft()
             if not self.admission.acquire_slot(timeout=5.0):
                 self.queue.appendleft(req)
                 break
             slot = self.pool.acquire(req.rid)
-            staged.append((req, slot, lp, grant))
+            staged.append((req, slot, lp, grant, sh_ids, sh_len, from_cache))
             if self.paged:
-                staged_pages += self.pool.pages.pages_for(grant)
+                staged_pages += max(
+                    self.pool.pages.pages_for(grant) - n_shared, 0)
         if not staged:
+            self._deferred_free.extend(evict_groups)
             return 0
         grants = (self.pool.reserve_batch(
-            [(slot, grant) for (_, slot, _, grant) in staged])
+            [(t[1], t[3]) for t in staged], shared=[t[4] for t in staged],
+            evict=evict_groups or None)
             if self.paged else [None] * len(staged))
-        for (req, slot, lp, _), ids in zip(staged, grants):
+        for (req, slot, lp, _, sh_ids, sh_len, from_cache), ids in zip(
+                staged, grants):
             if self.paged:
-                self.pool.assign(slot, ids=ids, length=0)
+                self.pool.assign(slot, ids=ids, shared_ids=sh_ids,
+                                 length=sh_len)
+                self._count_adoption(sh_ids, sh_len, from_cache, True)
+                self._gen_reg[slot] = lp // self.pool.page_size
             else:
-                self.pool.assign(slot, length=0)
-            self._pf_pos[slot] = 0
+                self.pool.assign(slot, length=sh_len)
+            self._pf_pos[slot] = sh_len        # adoption = skipped chunks
             self._pf_end[slot] = lp
             self._last_tok[slot] = 0
             self._steps_left[slot] = req.max_new_tokens - 1
@@ -561,9 +750,43 @@ class SlotServeEngine:
             self.active[slot] = req
         return len(staged)
 
+    def _donate_on_retire(self, req: ServeRequest, held: np.ndarray,
+                          prefill_pos: Optional[int] = None
+                          ) -> Optional[np.ndarray]:
+        """Offer a retiring request's written full pages to the prefix
+        cache; return the pages still to free (the cache inherits the
+        retiree's reference for those it keeps, so leaving them out of
+        the free group is the donation: no extra acquire). The written
+        extent is the prompt plus every written reply token (the last
+        sampled token is never written), or, for a request torn down
+        mid-prefill, its cursor ``prefill_pos``."""
+        if self.prefix_cache is None or held is None or not held.size:
+            return held
+        lp = int(req.prompt.size)
+        if prefill_pos is not None:
+            tokens, gen_from = req.prompt[:int(prefill_pos)], None
+        else:
+            out = req.out_tokens
+            tokens = (np.concatenate([req.prompt,
+                                      np.asarray(out[:-1], np.int32)])
+                      if out else req.prompt)
+            gen_from = lp if tokens.size > lp else None
+        if tokens.size < self.pool.page_size:
+            return held
+        # donor pages live under the donor's dispatch-shape root
+        suffix = (cache_key_suffix(0, self.prefill_chunk)
+                  if self.prefill_chunk
+                  else cache_key_suffix(self._bucket_len(lp), 0))
+        kept, _ = self.prefix_cache.donate(tokens, held, suffix,
+                                           generated_from=gen_from)
+        if kept.size:
+            held = held[~np.isin(held, kept)]
+        return held
+
     def _retire_batch(self, pairs: List[Tuple[int, int]]) -> None:
         """Retire ``(slot, step_offset)`` pairs; under the paged layout
-        every retirement's pages return in ONE allocator critical
+        every retirement's pages (less what the prefix cache keeps) and
+        any deferred cache evictions return in ONE allocator critical
         section."""
         deferred = []
         for slot, offset in pairs:
@@ -572,13 +795,26 @@ class SlotServeEngine:
             req.finish_step = self.step_clock + offset
             req.finish_s = time.perf_counter()
             self._steps_left[slot] = 0
-            held = self.pool.evict(slot)
-            if held is not None and held.size:
-                deferred.append(held)
+            if self.paged:
+                held = self._donate_on_retire(
+                    req, self.pool.evict(slot, free_pages=False))
+                if held is not None and held.size:
+                    deferred.append(held)
+            else:
+                self.pool.evict(slot)
             self.admission.release_slot()
             self.finished.append(req)
+        deferred = self._deferred_free + deferred
+        self._deferred_free = []
         if deferred:
             self.pool.pages.free_batch(deferred)
+
+    def _flush_deferred_frees(self) -> None:
+        """Land deferred cache evictions when a round ends before its
+        retirement section."""
+        if self._deferred_free:
+            self.pool.pages.free_batch(self._deferred_free)
+            self._deferred_free = []
 
     # --------------------------------------------- lazy page growth (paged)
     def _preempt(self, slot: int) -> None:
@@ -587,7 +823,7 @@ class SlotServeEngine:
         decoding regenerates the same stream; its first grant keeps the
         FIFO log entry)."""
         req = self.active.pop(slot)
-        held = self.pool.evict(slot)
+        held = self.pool.evict(slot, free_pages=False)
         if held.size:
             self.pool.pages.free_batch([held])
         self.admission.release_slot()
@@ -595,6 +831,7 @@ class SlotServeEngine:
         self._grow_cap[slot] = 0
         self._pf_pos[slot] = 0
         self._pf_end[slot] = 0
+        self._gen_reg[slot] = 0
         req.slot = -1
         req.state = RequestState.QUEUED
         req.eos = False
@@ -606,19 +843,48 @@ class SlotServeEngine:
     def _prefilling(self, slot: int) -> bool:
         return self._pf_pos[slot] < self._pf_end[slot]
 
+    def _split_plan(self, order: List[int], lens: np.ndarray,
+                    steps: int) -> List[Tuple[int, int]]:
+        """The round's CoW splits: every ``(slot, table_idx)`` whose
+        coming writes (flat positions ``[len, len + steps)``) hit a
+        shared page — except one keeper per page when every holder is
+        about to write it: the longest context (ties to the oldest
+        grant) keeps the page in place, since its writes start past
+        everyone else's readable prefix and the others' decrefs land in
+        the same section as their copies' grants."""
+        targets: Dict[int, List[Tuple[int, int]]] = {}
+        for s in order:
+            for j, page in self.pool.shared_write_targets(
+                    s, int(lens[s]), int(lens[s]) + steps):
+                targets.setdefault(page, []).append((s, j))
+        plan: List[Tuple[int, int]] = []
+        for page, writers in targets.items():
+            if int(self.pool.pages.refcounts([page])[0]) == len(writers):
+                keeper = max(writers,
+                             key=lambda sj: (int(lens[sj[0]]),
+                                             -self.active[sj[0]].rid))
+                writers = [w for w in writers if w != keeper]
+            plan.extend(writers)
+        return plan
+
     def _grow_for_chunk(self, steps: int, chunk_rows: Tuple[int, ...] = ()
                         ) -> Tuple[set, set]:
         """The per-round page prep: ONE allocator critical section tops
         up every decoding slot (to the pages this round's writes and
         reads need, a lookahead window ahead, capped at its worst case)
-        and every planned prefill chunk. A decoding slot that cannot be
-        covered pauses for the round; a chunk whose pages starve is
-        deferred whole. If nobody can advance, the youngest grant is
-        preempted until someone can. Returns ``(paused_decode_slots,
-        advancing_chunk_slots)``. Eager growth reserved every page at
-        admission: nothing to do."""
+        and every planned prefill chunk, makes the CoW splits, and drops
+        the prefix cache's watermark evictions. A decoding slot that
+        cannot be covered, or whose split starved, pauses for the round;
+        a chunk whose pages starve is deferred whole. If nobody can
+        advance, the youngest grant is preempted until someone can.
+        Prefilling rows never split: their writes start past any
+        adopted prefix and their pages are registered at completion.
+        Returns ``(paused_decode_slots, advancing_chunk_slots)``. Eager
+        growth reserved every page at admission: without sharing there
+        is nothing to do."""
+        lazy = self.page_growth == "lazy"
         chunk_set = set(chunk_rows)
-        if not self.active or self.page_growth != "lazy":
+        if not self.active or (not lazy and not self.prefix_sharing):
             return set(), chunk_set
         C = max(self.prefill_chunk, 1)
         ps = self.pool.page_size
@@ -630,7 +896,7 @@ class SlotServeEngine:
             tight = self.pool.pages.n_free <= self._headroom_pages()
             look = 1 if tight else self.page_lookahead_chunks
             items = []
-            for s in order:
+            for s in (order if lazy else ()):
                 if self._prefilling(s):
                     if s not in chunk_set:
                         continue      # deferred rows need no pages
@@ -640,10 +906,25 @@ class SlotServeEngine:
                     target = int(min(lens[s] + steps * look,
                                      self._grow_cap[s]))
                 items.append((s, target))
-            self.pool.grow_batch(items)
+            splits = (self._split_plan(decode_live, lens, steps)
+                      if self.prefix_sharing else [])
+            evict_groups: List[np.ndarray] = []
+            if self.prefix_cache is not None and (items or splits):
+                needed = sum(
+                    max(self.pool.pages.pages_for(t)
+                        - self.pool.held_pages(s), 0)
+                    for s, t in items) + len(splits)
+                if needed > 0:
+                    evict_groups, _ = self._plan_evictions(
+                        needed + self._watermark_pages()
+                        - self.pool.pages.n_free)
+            _, split_ok = self.pool.prepare_batch(items, splits,
+                                                  evict_groups=evict_groups)
+            self.cow_splits += sum(split_ok)
             paused = {s for s in decode_live
                       if self.pool.held_pages(s) * ps
                       < min(lens[s] + steps, self._grow_cap[s])}
+            paused |= {s for (s, _), ok in zip(splits, split_ok) if not ok}
             starved = {s for s in chunk_live
                        if self.pool.held_pages(s) * ps
                        < min(int(self._pf_pos[s]) + C, int(self._pf_end[s]))}
@@ -742,6 +1023,7 @@ class SlotServeEngine:
             self.pool.retune()
         self._admit()
         if not self.active:
+            self._flush_deferred_frees()
             return 0
         return self._run_round()
 
@@ -764,6 +1046,7 @@ class SlotServeEngine:
         else:
             paused, advancing = set(), set(planned)
         if not self.active:                    # everything preempted away
+            self._flush_deferred_frees()
             return 0
         chunk_rows = [s for s in planned
                       if s in advancing and s in self.active]
@@ -844,12 +1127,24 @@ class SlotServeEngine:
             req.out_tokens.append(tok0)
             if self.eos_id is not None and tok0 == self.eos_id:
                 req.eos = True
+            if self.paged and self.prefix_sharing:
+                self.prefix_index.register(
+                    req.prompt, 0,
+                    self.pool.page_ids(
+                        s, self.pool.pages.pages_for(int(self._pf_end[s]))),
+                    schedule=self.prefill_chunk)
             self._pf_pos[s] = 0
             self._pf_end[s] = 0
             req.state = RequestState.DECODING
             req.decode_start_step = self.step_clock
             if req.eos or self._steps_left[s] <= 0:
                 retire.append((s, 0))
+        # live generated-boundary registration (cache on, chunked): as a
+        # decoding conversation crosses page boundaries, its prompt +
+        # reply full pages enter the live index, so a fork adopts them
+        # while the donor is still active
+        reg_gen = (self.prefix_cache is not None and self.prefix_sharing
+                   and self.prefill_chunk > 0)
         for slot in list(self.active):
             if slot in paused or slot in pf_skip:
                 continue
@@ -869,9 +1164,22 @@ class SlotServeEngine:
                     done_at = s + 1
             if done_at is not None:
                 retire.append((slot, done_at))
+            elif reg_gen:
+                self._register_generated(slot, req)
         self._retire_batch(retire)
         self.step_clock += steps
         return len(self.active)
+
+    def _register_generated(self, slot: int, req: ServeRequest) -> None:
+        ps = self.pool.page_size
+        n_full = (int(req.prompt.size) + len(req.out_tokens) - 1) // ps
+        if n_full > int(self._gen_reg[slot]):
+            written = np.concatenate(
+                [req.prompt, np.asarray(req.out_tokens[:-1], np.int32)])
+            self.prefix_index.register(written[:n_full * ps], 0,
+                                       self.pool.page_ids(slot, n_full),
+                                       schedule=self.prefill_chunk)
+            self._gen_reg[slot] = n_full
 
     def run_until_done(self, max_rounds: int = 1_000_000) -> int:
         """Drain queue + active set. Returns scheduler rounds used."""
@@ -880,6 +1188,17 @@ class SlotServeEngine:
             self.step()
             rounds += 1
         return rounds
+
+    def drop_prefix_cache(self) -> int:
+        """Release every page the prefix cache retains (one
+        ``free_batch``); returns the references dropped. After it an idle
+        engine's pool must be empty — the leak check's drain."""
+        if self.prefix_cache is None:
+            return 0
+        groups = self.prefix_cache.drop_all()
+        if groups:
+            self.pool.pages.free_batch(groups)
+        return int(sum(g.size for g in groups))
 
     # -------------------------------------------------------------- reporting
     def stats(self) -> Dict[str, float]:
@@ -947,8 +1266,32 @@ class SlotServeEngine:
             "lock_acquires_per_token": (float(ls["acquires"])
                                         / float(max(toks, 1))),
             "lock_retunes": float(ls.get("retunes", 0)),
+            "aborted_batches": float(pp.aborted_batches),
+            "per_page_lock_acquires": float(pp.pages_alloced
+                                            + pp.pages_freed),
             "per_page_lock_acquires_per_token": (
                 float(pp.pages_alloced + pp.pages_freed)
                 / float(max(toks, 1))),
+            # prefix sharing's currency: physical page grants per token
+            "pages_alloced": float(pp.pages_alloced),
+            "pages_per_token": (float(pp.pages_alloced)
+                                / float(max(toks, 1))),
+            "page_increfs": float(pp.increfs),
+            "page_decrefs": float(pp.decrefs),
+            "prefix_sharing": float(self.prefix_sharing),
+            "prefix_hits": float(self.prefix_hits),
+            "shared_pages_adopted": float(self.shared_pages_adopted),
+            "cow_splits": float(self.cow_splits),
+            "prefix_cache": float(self.prefix_cache is not None),
+            "cache_hit_rate": (
+                float(self.prefix_cache.hits)
+                / float(max(self.prefix_cache.hits
+                            + self.prefix_cache.misses, 1))
+                if self.prefix_cache is not None else 0.0),
+            "cache_hits": float(self.cache_hits),
+            "cache_tokens_served": float(self.cache_tokens_served),
+            "prefill_tokens_saved": float(self.prefill_tokens_saved),
         })
+        if self.prefix_cache is not None:
+            out.update(self.prefix_cache.stats())
         return out

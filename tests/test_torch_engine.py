@@ -7,9 +7,12 @@ allocator's lock acquires, pauses and preemptions must be identical,
 and both pools must drain to zero pages in use — including arenas small
 enough to pause and preempt. Also: every feature outside the slice
 raises at construction, the former gaps (the slot arena, one-shot
-prefill, eager growth) serve, and the entry point refuses to run
-without a card unless asked for the CPU. The slot layout and one-shot
-prefill are held to the JAX engine in tests/test_torch_slots.py."""
+prefill, eager growth, prefix sharing and the prefix cache) serve and
+match the reference, the prefix defaults resolve as the reference's,
+and the entry point refuses to run without a card unless asked for the
+CPU. The slot layout and one-shot prefill are held to the JAX engine in
+tests/test_torch_slots.py; sharing and the cache in
+tests/test_torch_prefix_sharing.py and tests/test_torch_prefix_cache.py."""
 
 import jax
 import numpy as np
@@ -120,14 +123,73 @@ def test_bucket_pad_lanes_leave_vacant_slots_untouched(models):
     (dict(kv_layout="slots", fault_plan=object()), "fault injection"),
 ])
 def test_features_outside_the_slice_raise(models, kw, what):
-    """Still outside: sampling, prefix sharing and the prefix cache where
-    the reference turns them on (the paged layout), fault injection."""
+    """Still outside: sampling and fault injection. Prefix sharing and
+    the prefix cache ("on", and "auto" on the paged layout) were outside
+    until this slice: those cases now build, serve to the end and match
+    the JAX engine."""
+    if what.startswith("prefix"):
+        _serve_prefix_case(models, kw)
+        return
     _, _, tm, tp = models
     args = dict(capacity=2, max_len=16, kv_layout="paged",
                 prefill_chunk_tokens=4, device="cpu")
     args.update(kw)
     with pytest.raises(ValueError, match=f"{what}.*not ported yet"):
         SlotServeEngine(tm, tp, **args)
+
+
+def _serve_prefix_case(models, kw):
+    """A prompt, the same prompt again once the first has prefilled
+    (while it decodes), a drain, then the prompt once more: streams,
+    ``grant_log``, acquires and the sharing and cache statistics equal
+    the JAX engine's, and the pool drains."""
+    jm, jp, tm, tp = models
+    prompt = np.random.default_rng(5).integers(1, 512, 9).astype(np.int32)
+    outs = []
+    for cls, m, p, extra in ((JEngine, jm, jp, {"seed": 0}),
+                             (SlotServeEngine, tm, tp, {"device": "cpu"})):
+        eng = cls(m, p, capacity=2, max_len=16, kv_layout="paged",
+                  prefill_chunk_tokens=4, page_size=4, decode_chunk=2,
+                  **kw, **extra)
+        hs = [eng.submit(prompt, 6)]
+        for _ in range(3):                  # three 4-token chunks
+            eng.step()
+        hs.append(eng.submit(prompt, 3))
+        eng.run_until_done()
+        hs.append(eng.submit(prompt, 3))
+        eng.run_until_done()
+        assert [len(h.out_tokens) for h in hs] == [6, 3, 3]
+        st = eng.stats()
+        outs.append(({h.rid: list(h.out_tokens) for h in hs},
+                     list(eng.grant_log),
+                     eng.pool.pages.lock_stats()["acquires"],
+                     {k: v for k, v in st.items() if k.startswith("cache_")
+                      or k in ("prefix_sharing", "prefix_cache",
+                               "prefix_hits", "shared_pages_adopted",
+                               "cow_splits", "prefill_tokens_saved")}))
+        eng.drop_prefix_cache()
+        eng.pool.check()
+        assert eng.pool.pages.in_use == 0
+    assert outs[1] == outs[0]
+    assert outs[1][3]["prefix_hits"] > 0
+
+
+@pytest.mark.parametrize("layout", ["paged", "slots"])
+@pytest.mark.parametrize("chunk", [None, 4], ids=["one-shot", "chunked"])
+def test_prefix_defaults_resolve_as_reference(models, layout, chunk):
+    """With no prefix arguments both engines resolve sharing and the
+    cache alike: sharing on for the paged layout, the cache off, the
+    watermark at the admission headroom."""
+    jm, jp, tm, tp = models
+    engs = [cls(m, p, capacity=2, max_len=16, kv_layout=layout,
+                prefill_chunk_tokens=chunk, **extra)
+            for cls, m, p, extra in ((JEngine, jm, jp, {}),
+                                     (SlotServeEngine, tm, tp,
+                                      {"device": "cpu"}))]
+    got = [(e.prefix_sharing, e.prefix_index is None,
+            e.prefix_cache is None, e.cache_watermark) for e in engs]
+    assert got[1] == got[0]
+    assert got[1][0] == (layout == "paged") and got[1][2]
 
 
 @pytest.mark.parametrize("kw", [

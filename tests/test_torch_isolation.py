@@ -44,6 +44,7 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
     # the serving path's modules, the slot arena and the legacy engine
     # among them, were imported by the walk and pulled in neither
     for mod in ("repro_torch.serve.kv_slots", "repro_torch.serve.engine",
+                "repro_torch.serve.prefix_cache",
                 "repro_torch.serve.scheduler", "repro_torch.launch.serve",
                 "repro_torch.models.attention", "repro_torch.models.lm"):
         assert mod in names.split(), mod
@@ -91,8 +92,10 @@ def test_serve_cli_refuses_the_cpu_by_default():
 
 @pytest.mark.parametrize("flags", [
     ["--legacy"], ["--kv-layout", "paged"],
-    ["--kv-layout", "slots", "--prefill-chunk-tokens", "4"]],
-    ids=["legacy", "paged", "slots-chunked"])
+    ["--kv-layout", "slots", "--prefill-chunk-tokens", "4"],
+    ["--kv-layout", "paged", "--prefix-sharing", "on", "--prefix-cache",
+     "on"]],
+    ids=["legacy", "paged", "slots-chunked", "paged-prefix"])
 def test_serve_cli_paths_refuse_the_cpu_by_default(flags):
     _no_card()
     from repro_torch.launch import serve
@@ -162,3 +165,33 @@ def test_chip_smoke_fails_alone(tmp_path):
                          timeout=120)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+@pytest.mark.parametrize("prefill", [["--prefill-chunk-tokens", "4"], []],
+                         ids=["chunked", "one-shot"])
+def test_serve_cli_prefix_sharing_and_cache_run_on_the_cpu(capsys, prefill):
+    """``--prefix-sharing on --prefix-cache on`` on the paged layout,
+    on the CPU because it is asked for: the cache's prints, and the
+    leak gate passes after the cache is released."""
+    from repro_torch.launch import serve
+    eng = serve.main(["--arch", "qwen3-14b", "--smoke", "--requests", "4",
+                      "--capacity", "2", "--prompt-len", "9",
+                      "--new-tokens", "3", "--kv-layout", "paged",
+                      "--page-size", "4", "--prefix-sharing", "on",
+                      "--prefix-cache", "on", "--device", "cpu", *prefill])
+    out = capsys.readouterr().out
+    assert eng.prefix_sharing and eng.prefix_cache is not None
+    assert "prefix sharing on:" in out and "prefix cache:" in out
+    assert "FIFO grant order: OK" in out and "leak check: OK" in out
+    assert eng.prefix_cache.pages_held == 0 and eng.pool.pages.in_use == 0
+    assert all(len(r.out_tokens) == 3 for r in eng.finished)
+
+
+def test_serve_cli_prefix_defaults_are_the_reference_defaults():
+    """The launcher's defaults are the reference launcher's
+    (``src/repro/launch/serve.py``): sharing ``auto``, the cache
+    ``off``, the watermark unset."""
+    from repro_torch.launch import serve
+    args = serve.parser().parse_args(["--arch", "qwen3-14b"])
+    assert (args.prefix_sharing, args.prefix_cache,
+            args.cache_watermark) == ("auto", "off", None)

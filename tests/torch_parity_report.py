@@ -124,6 +124,9 @@ def main():
     rows.update(sync_rows())
     slot_rows, streams = slots_rows(jm, jp, tm, tp)
     rows.update(slot_rows)
+    pre_rows, pre_streams = prefix_rows(jm, jp, tm, tp)
+    rows.update(pre_rows)
+    streams.update(pre_streams)
     for name, e in rows.items():
         print(json.dumps({"function": name, "max_abs_err": e}))
     print(json.dumps({"function": "LM greedy tokens", "identical": same}))
@@ -208,6 +211,71 @@ def slots_rows(jm, jp, tm, tp):
         == ServeEngine(tm, tp, max_len=16).generate(
             {"tokens": torch.tensor(tok)}, 6).tokens.tolist())
     return rows, streams
+
+
+def prefix_rows(jm, jp, tm, tp):
+    """Prefix sharing, the CoW copy and the prefix cache
+    (tests/test_torch_prefix_sharing.py, tests/test_torch_prefix_cache.py):
+    the copy's error, whether the index and cache keys and lookups are
+    identical, and whether the engines' streams, grant logs, acquires
+    and sharing / cache statistics are."""
+    from repro.serve import kv_pages as jkv
+    from repro.serve import prefix_cache as jpc
+    from repro.serve.engine import SlotServeEngine as JEngine
+    from repro_torch.serve import kv_pages as tkv
+    from repro_torch.serve import prefix_cache as tpc
+    from repro_torch.serve.engine import SlotServeEngine
+    rng = np.random.default_rng(11)
+    rows, same = {}, {}
+    arena = rng.standard_normal((3, 9, 4, 2, 8)).astype(np.float32)
+    src, dst = np.array([0, 5, 7], np.int32), np.array([2, 9, 4], np.int32)
+    rows["copy_pages (period-stacked, a sentinel target)"] = err(
+        ja.copy_pages(jnp.asarray(arena), jnp.asarray(src), jnp.asarray(dst),
+                      axis=1),
+        tattn.copy_pages(torch.from_numpy(arena.copy()), src, dst, axis=1))
+    toks = rng.integers(0, 512, 22).astype(np.int32)
+    found = []
+    for kv, pc in ((jkv, jpc), (tkv, tpc)):
+        pool = kv.PagePool(16, 4)
+        idx, cache = kv.PrefixIndex(4, pool), pc.PrefixCache(4, pool)
+        ids = pool.alloc(6, tag="donor")
+        idx.register(toks, 32, ids)
+        cache.donate(toks, pool.alloc(5, tag="retiree"),
+                     pc.cache_key_suffix(0, 4), generated_from=16)
+        found.append((sorted(idx._entries),
+                      [idx.lookup(toks[:n], 32)[0] for n in (22, 13, 8, 3)],
+                      cache.lookup(toks, pc.cache_key_suffix(0, 4))[0],
+                      cache.holders(), cache.evict_plan(3)[1]))
+    same["PrefixIndex keys and lookups, PrefixCache lookup / holders / "
+         "evict_plan"] = found[0] == found[1]
+    prompt = rng.integers(1, 512, 10).astype(np.int32)
+    for name, kw in (("sharing one-shot", dict(prefix_sharing="on")),
+                     ("sharing chunked", dict(prefix_sharing="on",
+                                              prefill_chunk_tokens=4)),
+                     ("cache chunked", dict(prefix_cache="on",
+                                            prefill_chunk_tokens=4))):
+        out = []
+        for cls, m, prm, extra in ((JEngine, jm, jp, {"seed": 0}),
+                                   (SlotServeEngine, tm, tp,
+                                    {"device": "cpu"})):
+            eng = cls(m, prm, capacity=3, max_len=32, kv_layout="paged",
+                      page_size=4, decode_chunk=2, **kw, **extra)
+            hs = [eng.submit(prompt, 6)]
+            for _ in range(3):
+                eng.step()
+            hs += [eng.submit(prompt, 4), eng.submit(prompt[:9], 4)]
+            eng.run_until_done()
+            hs.append(eng.submit(prompt, 4))
+            eng.run_until_done()
+            st = eng.stats()
+            out.append(([h.out_tokens for h in hs], eng.grant_log,
+                         eng.pool.pages.lock_stats()["acquires"],
+                         {k: v for k, v in st.items()
+                          if k.startswith(("prefix", "cache_"))
+                          or k in ("shared_pages_adopted", "cow_splits")}))
+        same[f"SlotServeEngine {name}: streams, grant_log, acquires, "
+             f"sharing / cache stats"] = out[0] == out[1]
+    return rows, same
 
 
 def sync_rows():

@@ -2,7 +2,7 @@
 """Drive the PyTorch port's main paths on one CUDA card: serving, and
 the sync library's plans with the paper's kernel benchmarks.
 
-    python3 chip_smoke.py            # phases 1-4 and 6-8, one card
+    python3 chip_smoke.py            # phases 1-4 and 6-9, one card
 
 Run from the root of a checkout; it needs ``src/repro_torch`` beside it
 and a CUDA card, and exits non-zero without printing a result otherwise.
@@ -38,7 +38,10 @@ JSON line with its seconds:
              boundary prefix, a donor-side split in a partial page, the
              cache over a two-turn conversation, watermark eviction):
              streams, grant logs, acquires and the sharing and cache
-             counts identical
+             counts identical; then three lifecycle runs (cancels in
+             every state with step deadlines, chaos, a poisoned rid):
+             streams, states, grant logs, acquires, the lifecycle counts
+             and the faults by kind identical
   4 serve    full-width qwen3-14b (40 layers, bf16) serving 8 requests
              through the paged, chunked-prefill, bucketed engine (prefix
              sharing on, as the reference resolves it; random prompts
@@ -71,10 +74,21 @@ JSON line with its seconds:
              two turns (turn 2 resubmits prompt + reply + 16 tokens);
              adoptions, splits, cache hits and skipped prefill tokens,
              no leak after the drain, launch counters over the phase
+  9 lifecycle  full width with phase 4's weights on the phase-4 engine:
+             phase 4's traffic with cancels in QUEUED, PREFILLING and
+             DECODING and step deadlines (one expiring in the queue, one
+             passed while decoding); under seeded chaos (allocator
+             aborts, dispatch failures, stuck holders past the watchdog);
+             with dispatch faults only (streams equal to the fault-free
+             run); with a poisoned request (quarantined alone); then the
+             launcher's open loop (16 Poisson clients, cancels, a TTFT
+             SLO, deadlines, a bounded intake, executor deaths): every
+             client accounted for, each stream equal to its request's
+             tokens; launch counters over the phase, and per run
 
 Then one JSON line naming every kernel with its launches (from phase 4
 for the serving kernels, from phase 6 for the others; each path's,
-phase 8's among them, in ``launches_by_path``), times and bound,
+phases 8 and 9 among them, in ``launches_by_path``), times and bound,
 and last the device line. Every failed check exits non-zero before the
 last line.
 """
@@ -1070,18 +1084,31 @@ def serve(engine, prompts, new_tokens):
     return reqs, time.perf_counter() - t0
 
 
-def check_drained(engine, reqs, new_tokens, vocab, what):
+def check_drained(engine, reqs, new_tokens, vocab, what, faulted=False):
     """Every request finished with its tokens (``new_tokens``, or each
     request's own budget when None) from the vocabulary, in FIFO grant
     order; paged, the pool (and the prefix cache, released after its
-    own check) drains to no page in use."""
+    own check) drains to no page in use. A run without a fault plan
+    (``faulted`` False) injected nothing and retried no round."""
     check(all(r.state.value == "finished" and len(r.out_tokens) == (
         r.max_new_tokens if new_tokens is None else new_tokens)
         for r in reqs), f"{what}: a request did not finish with its tokens")
+    check_pool(engine, reqs, vocab, what, faulted)
+
+
+def check_pool(engine, reqs, vocab, what, faulted=False):
+    """The checks of :func:`check_drained` that hold whatever state each
+    request ended in: token ids, FIFO grants, no fault or retried round
+    unless ``faulted``, and (paged) no page left in use."""
     check(all(0 <= t < vocab for r in reqs for t in r.out_tokens),
           f"{what}: token id out of the vocabulary")
     check(engine.grant_log == sorted(engine.grant_log),
           f"{what}: FIFO grant order violated: {engine.grant_log}")
+    if not faulted:
+        st = engine.stats()
+        check(st["rounds_retried"] == 0 and st["faults_injected"] == 0,
+              f"{what}: a fault-free run retried {st['rounds_retried']} "
+              f"rounds, {st['faults_injected']} faults injected")
     if engine.kv_layout != "paged":
         return
     try:
@@ -1147,6 +1174,9 @@ def phase_parity(out):
                      "lock_acquires": runs["cuda"][2]}
     res.update(prefix_parity(model, {"cuda": params_gpu, "cpu": params_cpu},
                              c, cfg.vocab_size))
+    res.update(lifecycle_parity(model, {"cuda": params_gpu,
+                                        "cpu": params_cpu},
+                                c, cfg.vocab_size))
     legacy = {}
     for dev, params in (("cuda", params_gpu), ("cpu", params_cpu)):
         eng = ServeEngine(model, params,
@@ -1565,6 +1595,346 @@ def phase_prefix(out):
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
+# ------------------------------------------------ phases 3 and 9: lifecycle
+#: the lifecycle counts a run reports and phase 3 compares across devices
+LIFECYCLE_COUNTS = ("finished", "cancelled", "expired", "failed",
+                    "rounds_retried", "aborted_batches",
+                    "requests_quarantined", "lock_acquires")
+#: chaos: every transient fault kind at rate 0.2, at most 3 of each, the
+#: stuck holder past the allocator watchdog (the fields the launcher's
+#: ``make_fault_plan`` / ``make_engine`` set, with caps)
+CHAOS = dict(alloc_rate=0.2, dispatch_rate=0.2, stuck_rate=0.2,
+             stuck_hold_s=5e-3, max_per_kind={"alloc": 3, "dispatch": 3,
+                                              "stuck": 3})
+WATCHDOG_S = 1e-3
+# Phase 9's open loop: the launcher's --open-loop at phase 4's engine
+# settings; 16 clients, Poisson arrivals, a quarter hanging up, an
+# executor FaultPlan of rate 0.2 (at most 3 deaths).
+OPEN_LOOP = dict(requests=16, prompt_len=128, new_tokens=16,
+                 arrival_rate=4.0, cancel_rate=0.25, deadline_ms=4000.0,
+                 slo_ms=2000.0, intake_limit=8, executor_rate=0.2,
+                 executor_cap=3)
+
+
+def lifecycle_plan(prompts, c):
+    """Who does what in the cancel-and-deadline run, from the prompt
+    lengths alone: of the first ``capacity`` requests (the first wave),
+    the longest prompt is cancelled after its first prefill chunk, the
+    next longest after its 4th token, and the shortest carries a step
+    deadline one step past its last chunk, which it passes while
+    decoding; request n - 2 is cancelled in the queue and the FIFO-last
+    carries step deadline 2."""
+    n, k, C = len(prompts), c["capacity"], c["prefill_chunk"]
+    wave = sorted(range(k), key=lambda i: (-prompts[i].size, i))
+    late = wave[-1]
+    return {"prefilling": wave[0], "decoding": wave[1], "late": late,
+            "late_deadline": -(-prompts[late].size // C) + 1,
+            "queued": n - 2, "expire": n - 1}
+
+
+def drive_lifecycle(engine, prompts, new_tokens, plan):
+    """The cancel-and-deadline run: submit all at step 0 (with the
+    plan's deadlines), cancel the queued victim at once, then after
+    every round the prefilling and decoding victims as they reach their
+    states. Returns (requests, {victim: state when cancelled}, whether
+    the late row was seen late while decoding)."""
+    reqs = []
+    for i, p in enumerate(prompts):
+        dl = (2 if i == plan["expire"] else plan["late_deadline"]
+              if i == plan["late"] else None)
+        reqs.append(engine.submit(p, new_tokens, deadline_step=dl))
+    seen = {"queued": reqs[plan["queued"]].state.value}
+    check(engine.cancel(reqs[plan["queued"]].rid), "cancel of a queued rid")
+    late_decoding = False
+    while engine.queue or engine.active or engine._cancel_pending:
+        engine.step()
+        pf, dec = reqs[plan["prefilling"]], reqs[plan["decoding"]]
+        if ("prefilling" not in seen and pf.state.value == "prefilling"
+                and pf.prefill_chunks >= 1):
+            seen["prefilling"] = pf.state.value
+            engine.cancel(pf.rid)
+        if "decoding" not in seen and len(dec.out_tokens) >= 4:
+            seen["decoding"] = dec.state.value
+            engine.cancel(dec.rid)
+        late = reqs[plan["late"]]
+        if late.state.value == "decoding" and any(
+                d["late"] for d in engine.slot_deadlines().values()
+                if int(d["rid"]) == late.rid):
+            late_decoding = True
+    return reqs, seen, late_decoding
+
+
+def lifecycle_record(engine, reqs):
+    st = engine.stats()
+    fp = engine.fault_plan
+    return {"streams": {r.rid: list(r.out_tokens) for r in reqs},
+            "states": {r.rid: r.state.value for r in reqs},
+            "grant_log": list(engine.grant_log),
+            **{k: st.get(k, 0.0) for k in LIFECYCLE_COUNTS},
+            "faults_by_kind": dict(fp.by_kind) if fp is not None else {},
+            "watchdog_trips": st.get("watchdog_trips", 0.0),
+            "decode_steps": engine.decode_steps_run}
+
+
+def lifecycle_fault_plan(name):
+    """The FaultPlan of each lifecycle run (None: fault-free)."""
+    from repro_torch.serve.faults import FaultPlan
+    if name == "chaos":
+        return FaultPlan(0, **CHAOS)
+    if name == "dispatch_only":
+        return FaultPlan(0, dispatch_rate=CHAOS["dispatch_rate"],
+                         max_per_kind={"dispatch": 3})
+    if name == "poison":
+        return FaultPlan(0, poison_rid=3)      # the 4th request
+    return None
+
+
+def lifecycle_runs(model, params, c, prompts, device, vocab, names):
+    """The lifecycle runs of phases 3 and 9 on the phase-4 engine
+    (``make_engine``), each checked on its own: ``baseline`` (no fault
+    plan), ``cancel_deadline``, ``chaos``, ``dispatch_only`` and
+    ``poison``. Returns ``{name: record}``; every pool drains, and on the
+    card each run launched the decode kernel once a layer a decode step
+    (an aborted or failed round launches nothing)."""
+    from repro_torch.kernels.paged_attention import PAGED_DECODE
+    new = c["new_tokens"]
+    rec = {}
+    for name in names:
+        launched = PAGED_DECODE.launches
+        fp = lifecycle_fault_plan(name)
+        eng = make_engine(model, params, c, device, fault_plan=fp,
+                          allocator_watchdog_s=(WATCHDOG_S if fp else None))
+        what = f"lifecycle {name} {device}"
+        if name == "cancel_deadline":
+            plan = lifecycle_plan(prompts, c)
+            reqs, seen, late_decoding = drive_lifecycle(eng, prompts, new,
+                                                        plan)
+            check(seen == {"queued": "queued", "prefilling": "prefilling",
+                           "decoding": "decoding"},
+                  f"{what}: victims cancelled in states {seen}")
+            want = {plan["queued"]: "cancelled",
+                    plan["prefilling"]: "cancelled",
+                    plan["decoding"]: "cancelled", plan["expire"]: "expired"}
+            check(all(r.state.value == want.get(i, "finished")
+                      and (i in want or len(r.out_tokens) == new)
+                      for i, r in enumerate(reqs)),
+                  f"{what}: states { {r.rid: r.state.value for r in reqs} }")
+            check(late_decoding,
+                  f"{what}: the late row was never late while decoding")
+            check(reqs[plan["expire"]].rid not in eng.grant_log
+                  and reqs[plan["queued"]].rid not in eng.grant_log,
+                  f"{what}: a request granted after its teardown")
+        else:
+            reqs = [eng.submit(p, new) for p in prompts]
+            eng.run_until_done()
+            want = {3: "failed"} if name == "poison" else {}
+            check(all(r.state.value == want.get(i, "finished")
+                      and (i in want or len(r.out_tokens) == new)
+                      for i, r in enumerate(reqs)),
+                  f"{what}: states { {r.rid: r.state.value for r in reqs} }")
+            if name == "poison":
+                check("injected fault" in (reqs[3].error or ""),
+                      f"{what}: error {reqs[3].error!r}")
+        check_pool(eng, reqs, vocab, what, faulted=fp is not None)
+        r = rec[name] = lifecycle_record(eng, reqs)
+        r["decode_launches"] = PAGED_DECODE.launches - launched
+        if device == "cuda":
+            check(r["decode_launches"]
+                  == model.cfg.num_layers * eng.decode_steps_run,
+                  f"{what}: paged_decode launched {r['decode_launches']} "
+                  f"times for {eng.decode_steps_run} decode steps")
+        kinds = r["faults_by_kind"]
+        if name == "cancel_deadline":
+            r["plan"] = plan
+            check(r["cancelled"] == 3 and r["expired"] == 1,
+                  f"{what}: {r['cancelled']} cancelled, {r['expired']} "
+                  f"expired")
+        elif name == "chaos":
+            check(all(kinds.get(k, 0) >= 1
+                      for k in ("alloc", "dispatch", "stuck")),
+                  f"{what}: not every kind fired: {kinds}")
+            check(r["rounds_retried"] >= kinds["dispatch"]
+                  and r["aborted_batches"] >= 1
+                  and r["watchdog_trips"] >= 1
+                  and r["requests_quarantined"] == 0,
+                  f"{what}: retried {r['rounds_retried']}, aborted "
+                  f"{r['aborted_batches']}, watchdog {r['watchdog_trips']}, "
+                  f"quarantined {r['requests_quarantined']}")
+        elif name == "dispatch_only":
+            check(kinds.get("dispatch", 0) >= 1
+                  and r["rounds_retried"] == kinds["dispatch"],
+                  f"{what}: {kinds}, retried {r['rounds_retried']}")
+        elif name == "poison":
+            check(r["requests_quarantined"] == 1
+                  and r["rounds_retried"] >= eng.quarantine_after,
+                  f"{what}: quarantined {r['requests_quarantined']}, "
+                  f"retried {r['rounds_retried']}")
+    return rec
+
+
+def equal_share(a, b):
+    """Share of ``a``'s tokens equal to ``b``'s, position by position."""
+    total = sum(len(v) for v in a.values())
+    same = sum(x == y for rid in a for x, y in zip(a[rid], b.get(rid, [])))
+    return same / total if total else None
+
+
+def lifecycle_parity(model, params_by_dev, c, vocab):
+    """Phase 3's lifecycle runs on each device: streams, states, grant
+    logs, acquires, the lifecycle counts and the faults by kind
+    identical between them (the watchdog's trips follow the wall clock
+    and are checked per run, not compared)."""
+    prompts = make_requests(1, c, vocab)
+    names = ("cancel_deadline", "chaos", "poison")
+    runs = {dev: lifecycle_runs(model, params, c, prompts, dev, vocab, names)
+            for dev, params in params_by_dev.items()}
+
+    def keep(r):
+        return {k: v for k, v in r.items()
+                if k not in ("watchdog_trips", "decode_launches")}
+    first, *rest = runs.values()
+    res = {}
+    for name in names:
+        check(all(keep(r[name]) == keep(first[name]) for r in rest),
+              f"reduced lifecycle {name}: runs differ between devices: "
+              f"{ {d: keep(r[name]) for d, r in runs.items()} }")
+        res[f"lifecycle_{name}"] = {
+            "identical": True,
+            **{k: v for k, v in first[name].items() if k != "streams"}}
+    return res
+
+
+def open_loop_cell(model, params, device, vocab, c, o):
+    """Phase 9's open loop through the launcher's ``run_open_loop`` at
+    the phase-4 engine's settings, with an executor FaultPlan. Checks
+    every client is accounted for, the drain left no page, an executor
+    death was survived, and each handle streamed exactly its request's
+    tokens (a prefix of them when cancelled). Returns (engine, record)."""
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serve.faults import FaultPlan
+    args = launcher.parser().parse_args([
+        "--arch", "qwen3-14b", "--requests", str(o["requests"]),
+        "--capacity", str(c["capacity"]),
+        "--prompt-len", str(o["prompt_len"]),
+        "--new-tokens", str(o["new_tokens"]),
+        "--decode-chunk", str(c["decode_chunk"]), "--kv-layout", "paged",
+        "--page-size", str(c["page_size"]),
+        "--prefill-chunk-tokens", str(c["prefill_chunk"]),
+        "--attention-impl", "fused", "--bucketed-dispatch", "on",
+        "--open-loop", "--arrival-rate", str(o["arrival_rate"]),
+        "--cancel-rate", str(o["cancel_rate"]),
+        "--deadline-ms", str(o["deadline_ms"]),
+        "--slo-ms", str(o["slo_ms"]),
+        "--intake-limit", str(o["intake_limit"]), "--seed", "0"])
+    prompts = launcher.make_prompts(args, vocab)
+    fp = FaultPlan(0, executor_rate=o["executor_rate"],
+                   max_per_kind={"executor": o["executor_cap"]})
+    records = []
+    eng, _, report = launcher.run_open_loop(
+        model, params, prompts, args, device, fault_plan=fp,
+        records=records)
+    st = eng.stats()
+    what = f"open loop {device}"
+    accounted = (report["finished"] + report["cancelled"] + report["expired"]
+                 + report["shed"] + int(st["failed"]))
+    check(accounted == o["requests"] and len(records) == o["requests"],
+          f"{what}: {accounted} of {o['requests']} clients accounted for: "
+          f"{report}")
+    check(report["leaked_pages"] == 0, f"{what}: leaked pages {report}")
+    check(fp.by_kind.get("executor", 0) >= 1,
+          f"{what}: no executor death injected: {fp.by_kind}")
+    for r in records:
+        h = r["handle"]
+        if h is None:
+            check(r["shed"], f"{what}: client {r['i']} has no handle")
+            continue
+        full = list(h.req.out_tokens) if h.req is not None else []
+        check(r["tokens"] == h.out_tokens == full[:len(r["tokens"])]
+              and (h.state.value != "finished" or r["tokens"] == full),
+              f"{what}: client {r['i']} streamed {r['tokens']}, its "
+              f"request holds {full}")
+    check(eng.grant_log == sorted(eng.grant_log),
+          f"{what}: FIFO grant order violated")
+    states = [r["handle"].state.value if r["handle"] is not None else "shed"
+              for r in records]
+    return eng, {"report": report, "failed": st["failed"],
+                 "executor_faults": fp.by_kind.get("executor", 0),
+                 "rounds_retried": st["rounds_retried"],
+                 "decode_steps": eng.decode_steps_run,
+                 "states": {k: states.count(k) for k in sorted(set(states))}}
+
+
+def phase_lifecycle(out):
+    """The request lifecycle at full width with phase 4's weights, on the
+    phase-4 engine: phase 4's traffic cancelled in each state with step
+    deadlines; under seeded chaos (allocator aborts, dispatch failures,
+    stuck holders past the watchdog); with dispatch faults only, whose
+    retried rounds have the fault-free shapes, so its streams must equal
+    the fault-free run's when that run reproduces itself; with a
+    poisoned request; and the launcher's open loop with executor deaths.
+    The launch counters are zeroed just before the runs and read just
+    after: the decode kernel ran 40 times a decode step (an aborted
+    round launches nothing), the admission kernel at least once. The
+    shares of tokens equal to the fault-free run are information where
+    batch composition changed (bf16), not checks."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    cfg = get_arch("qwen3-14b")
+    if "serve_weights" in out:
+        model, params, prompts, phase4 = out["serve_weights"]
+    else:                      # run without phase 4: the same draw
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                            "cuda")
+        prompts, phase4 = make_requests(2, SERVE, cfg.vocab_size), None
+    names = ("baseline", "cancel_deadline", "chaos", "dispatch_only",
+             "poison")
+    counters = _counters()
+    for k in counters.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    rec = lifecycle_runs(model, params, SERVE, prompts, "cuda",
+                         cfg.vocab_size, names)
+    runs_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, ol = open_loop_cell(model, params, "cuda", cfg.vocab_size, SERVE,
+                           OPEN_LOOP)
+    open_loop_s = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in counters.items()}
+    steps = sum(r["decode_steps"] for r in rec.values()) + ol["decode_steps"]
+    check(launches["paged_decode"] == cfg.num_layers * steps,
+          f"lifecycle: paged_decode launched {launches['paged_decode']} "
+          f"times, want {cfg.num_layers} x {steps} decode steps")
+    check(launches["semaphore_admission"] > 0,
+          "semaphore_admission never launched on the lifecycle path")
+    out["launches_lifecycle"] = launches
+    base = rec["baseline"]["streams"]
+    # the fault-free run must reproduce itself (phase 4 ran it first;
+    # without phase 4 it runs a second time here) before the dispatch-
+    # only streams can be held to it
+    again = phase4 if phase4 is not None else lifecycle_runs(
+        model, params, SERVE, prompts, "cuda", cfg.vocab_size,
+        ("baseline",))["baseline"]["streams"]
+    reproduced = again == base
+    disp = rec["dispatch_only"]["streams"]
+    if reproduced:
+        check(disp == base, f"lifecycle dispatch_only: streams differ from "
+              f"the fault-free run ({equal_share(disp, base)} equal)")
+    return {"arch": cfg.name, "engine": SERVE, "chaos": CHAOS,
+            "open_loop_settings": OPEN_LOOP, "launches": launches,
+            "decode_steps": steps, "runs_wall_s": runs_s,
+            "open_loop_wall_s": open_loop_s,
+            "fault_free_reproduced": reproduced,
+            "fault_free_equal_share": equal_share(base, again),
+            "dispatch_only_equal_share": equal_share(disp, base),
+            "chaos_equal_share": equal_share(rec["chaos"]["streams"], base),
+            "runs": {n: {k: v for k, v in r.items() if k != "streams"}
+                     for n, r in rec.items()},
+            "open_loop": ol,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
 def phase_profile(out):
     """Where the time goes at full width (run on request: ``--phases
     1,5``): the phase-4 workload; after ``warm_rounds``, ``rounds``
@@ -1809,6 +2179,7 @@ def kernels_line(out):
                              ("serve_paged", "launches"),
                              ("serve_slots", "launches_slots"),
                              ("prefix", "launches_prefix"),
+                             ("lifecycle", "launches_lifecycle"),
                              ("primitives", "launches_primitives"))
                          if key in out},
                      **{key: k[key] for key in (
@@ -1818,6 +2189,7 @@ def kernels_line(out):
     return {"kernels": rows, "launches": out.get("launches", {}),
             "launches_slots": out.get("launches_slots", {}),
             "launches_prefix": out.get("launches_prefix", {}),
+            "launches_lifecycle": out.get("launches_lifecycle", {}),
             "launches_primitives": out.get("launches_primitives", {}),
             "card": out.get("card")}
 
@@ -1825,14 +2197,15 @@ def kernels_line(out):
 PHASES = {1: ("card", phase_card), 2: ("kernels", phase_kernels),
           3: ("parity", phase_parity), 4: ("serve", phase_serve),
           5: ("profile", phase_profile), 6: ("primitives", phase_primitives),
-          7: ("slots", phase_slots), 8: ("prefix", phase_prefix)}
+          7: ("slots", phase_slots), 8: ("prefix", phase_prefix),
+          9: ("lifecycle", phase_lifecycle)}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,6,7,8",
+    ap.add_argument("--phases", default="1,2,3,4,6,7,8,9",
                     help="comma-separated phases to run (default: 1-4 and "
-                         "6-8; 5, the profile, runs only when named)")
+                         "6-9; 5, the profile, runs only when named)")
     ap.add_argument("--profile-layout", default="paged",
                     choices=("paged", "slots"),
                     help="the engine phase 5 profiles: the main path "

@@ -1,7 +1,8 @@
 """Real (threading) implementations of the paper's primitives for the host
 control plane (a copy of ``repro.core.hostsync`` for the PyTorch port:
-the mutexes and semaphores the serving engine runs and the barriers the
-sync library plans with — the futex mutex is not ported yet).
+the mutexes, the futex mutex and the semaphores the serving engine and
+the sync library's bounded waits run, and the barriers the library
+plans with).
 
 A multi-host training deployment needs exactly the operations the paper
 builds: barriers (checkpoint quiescence, mesh reconfiguration), mutexes
@@ -291,6 +292,52 @@ class TicketMutex(LockStats):
         return False
 
 
+class FutexMutex(LockStats):
+    """The Linux-style spin-then-block mutex (paper Section 2.1/5).
+
+    Impossible on the GPU (no blocking); on the host it is the natural
+    endpoint of the paper's spectrum: a short aggressive spin, then a real
+    OS block on a condition variable.
+    """
+
+    def __init__(self, spin_tries: int = 100):
+        self._word = AtomicWord(0)
+        self._cond = threading.Condition()
+        self._spin_tries = spin_tries
+        self._init_stats()
+
+    def lock(self, timeout: Optional[float] = None) -> bool:
+        for i in range(self._spin_tries):
+            if self._word.exch(1) == 0:
+                self._note_acquire(i > 0)
+                return True
+        deadline = None if timeout is None else time.monotonic() + timeout
+        with self._cond:
+            while self._word.exch(1) != 0:
+                remaining = None
+                if deadline is not None:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        return False
+                self._cond.wait(timeout=remaining if remaining else 0.05)
+            self._note_acquire(True)
+            return True
+
+    def unlock(self) -> None:
+        self._note_release()
+        self._word.store(0)
+        with self._cond:
+            self._cond.notify(1)
+
+    def __enter__(self):
+        self.lock()
+        return self
+
+    def __exit__(self, *exc):
+        self.unlock()
+        return False
+
+
 class AdaptiveMutex:
     """Contention-adaptive wrapper: a FIFO ticket mutex whose *wait
     strategy* re-resolves from measured contention (paper Section 6).
@@ -546,6 +593,20 @@ class CentralizedBarrier:
             return True
         return _wait(lambda: self._generation != gen, self._strategy,
                      Backoff(1, 16), timeout)
+
+
+def make_mutex(kind: str = "auto", **kw):
+    """Unified constructor mirroring the paper's API table (Table 4)."""
+    if kind == "auto":
+        kind = "futex"  # hosts can block; the futex is the host optimum
+    return {"spin": SpinMutex, "fa": TicketMutex, "ticket": TicketMutex,
+            "futex": FutexMutex}[kind](**kw)
+
+
+def make_semaphore(initial: int, kind: str = "auto", **kw):
+    if kind == "auto":
+        kind = "sleeping"
+    return {"spin": SpinSemaphore, "sleeping": SleepingSemaphore}[kind](initial, **kw)
 
 
 def make_barrier(parties: int, kind: str = "auto", **kw):

@@ -33,6 +33,33 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
+class KernelError(RuntimeError):
+    """A kernel of the port could not be built or launched, or reported
+    an error word from the card. The serving engine never retries it: a
+    round that fails this way leaves ``SlotServeEngine.step`` at once."""
+
+
+def is_device_error(exc: BaseException) -> bool:
+    """Whether ``exc`` comes from the card or the kernel layer rather than
+    from the host logic around it: a :class:`KernelError`, or an error
+    torch raises for the CUDA runtime (out of memory, a device-side
+    assert, a failed launch) — torch reports those as ``RuntimeError``s
+    whose text names CUDA, or as its accelerator error type."""
+    if isinstance(exc, KernelError):
+        return True
+    types = tuple(t for t in (getattr(torch.cuda, "OutOfMemoryError", None),
+                              getattr(torch.cuda, "CudaError", None),
+                              getattr(torch, "AcceleratorError", None))
+                  if isinstance(t, type))
+    if types and isinstance(exc, types):
+        return True
+    text = str(exc)
+    return isinstance(exc, RuntimeError) and any(
+        key in text for key in ("CUDA error", "CUDA out of memory",
+                                "CUBLAS_STATUS", "cuDNN error",
+                                "device-side assert"))
+
+
 def nvcc() -> str:
     """Path of the CUDA compiler: ``$CUDA_HOME/bin/nvcc``, then
     ``/usr/local/cuda/bin/nvcc``, then ``nvcc`` on the PATH."""
@@ -41,7 +68,7 @@ def nvcc() -> str:
             return str(Path(home, "bin", "nvcc"))
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA "
+        raise KernelError("nvcc not found (set CUDA_HOME); the CUDA "
                            "kernels are built on the machine with the card")
     return found
 
@@ -79,7 +106,7 @@ def build(sources: Sequence[str]) -> Dict[str, Path]:
             continue
         os.replace(tmp, lib)   # atomic: a reader never sees a partial .so
     if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        raise KernelError("nvcc failed:\n" + "\n".join(failed))
     return paths
 
 
@@ -134,7 +161,7 @@ class CudaKernel:
     def _call(self, fn, name: str, args) -> None:
         code = fn(*args)
         if code != 0:
-            raise RuntimeError(
+            raise KernelError(
                 f"{name}: CUDA error {code} "
                 f"({self._err(code).decode(errors='replace')})")
         self.launches += 1
@@ -163,7 +190,7 @@ class CudaKernel:
         pending, self._pending = self._pending, []
         for word, what in pending:
             if int(word.item()) != 0:
-                raise RuntimeError(f"{self.symbol}: {what}")
+                raise KernelError(f"{self.symbol}: {what}")
 
 
 class PlanStaging:

@@ -35,7 +35,7 @@ import torch
 from repro_torch.core.device import resolve_device
 from repro_torch.sync.window import WindowedPlanner
 
-from .build import CudaKernel, PlanStaging
+from .build import CudaKernel, KernelError, PlanStaging
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 TICKET_LOCK = CudaKernel(
@@ -203,7 +203,7 @@ def _plan(arrival, m, b, *, device):
                                   np.asarray(m, np.float32),
                                   np.asarray(b, np.float32)), n)
     if out[2 * n + 1] != 0:
-        raise RuntimeError(f"{TICKET_LOCK.symbol}: {_EXPIRED}")
+        raise KernelError(f"{TICKET_LOCK.symbol}: {_EXPIRED}")
     return out[:n], out[n:2 * n], out[2 * n:2 * n + 1].view(np.float32)[0]
 
 

@@ -36,7 +36,7 @@ import torch
 from repro_torch.core.device import resolve_device
 from repro_torch.sync.window import WindowedPlanner
 
-from .build import CudaKernel, PlanStaging
+from .build import CudaKernel, KernelError, PlanStaging
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 XF_BARRIER = CudaKernel(
@@ -223,7 +223,7 @@ def _plan(arrive, present, required, *, epoch, max_polls, device):
                                     PlanStaging(device, 3 * n, 3 * n + 2))
     out = stage.run(XF_BARRIER, parts, int(epoch), int(max_polls), n)
     if out[3 * n + 1] != 0:
-        raise RuntimeError(f"{XF_BARRIER.symbol}: {_EXPIRED}")
+        raise KernelError(f"{XF_BARRIER.symbol}: {_EXPIRED}")
     return out[:n], out[n:2 * n], out[3 * n], out[2 * n:3 * n]
 
 

@@ -1,6 +1,6 @@
-"""Serving entry point: closed-loop continuous batching behind the
-Algorithm-5 semaphore (counterpart of ``repro.launch.serve``; the open
-loop and chaos mode are not ported yet).
+"""Serving entry point: continuous batching behind the Algorithm-5
+semaphore, closed loop or open loop (counterpart of
+``repro.launch.serve``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
         --smoke --requests 12 --capacity 4 --prompt-len 16 \\
@@ -22,14 +22,39 @@ pages of a live prompt with the same prefix, copy-on-write, and
 LRU trie for later prompts. ``--legacy`` also runs the old per-request
 loop on the same prompts and prints the comparison. Weights are random,
 drawn on the device from ``--seed``; prompts come from a numpy generator
-seeded the same way. ``--smoke`` serves the reduced config. After a paged drain (and the prefix cache's
-release) a hard leak gate fails the run if any page is still in use.
+seeded the same way. ``--smoke`` serves the reduced config. After a
+paged drain (and the prefix cache's release) a hard leak gate fails the
+run if any page is still in use.
+
+``--sync-backend`` pins the admission planner's backend (``host``,
+``cuda``, ``ref``; ``auto`` resolves from the machine abstraction and the
+device) and ``--admission-sem`` the live gate's semaphore algorithm;
+``--allocator-wait`` the page allocator's wait strategy.
+``--fault-rate`` turns on chaos mode: one seeded ``FaultPlan``
+(``--fault-seed``) aborts allocator batches, fails round dispatches and
+stalls allocator holders at that rate, the allocator's watchdog armed;
+every fault must be recovered, and the leak gate still applies.
+
+``--open-loop`` drives the asyncio front-end instead: clients arrive as a
+Poisson process at ``--arrival-rate`` req/s, stream their tokens, a
+``--cancel-rate`` share hangs up mid-stream, ``--slo-ms`` is the
+time-to-first-token SLO that splits goodput from throughput,
+``--deadline-ms`` arms per-request deadlines in the engine, and
+``--intake-limit`` bounds the ungranted population (past it a submit is
+shed):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \
+        --smoke --device cpu --open-loop --requests 16 --capacity 4 \
+        --arrival-rate 50 --cancel-rate 0.25 --slo-ms 500 \
+        --kv-layout paged --fault-rate 0.1
 """
 
 from __future__ import annotations
 
 import argparse
+import asyncio
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -38,7 +63,10 @@ from repro_torch.configs import get_arch
 from repro_torch.core.abstraction import PrimitiveKind
 from repro_torch.core.device import resolve_device
 from repro_torch.models import build_model
-from repro_torch.serve.engine import ServeEngine, SlotServeEngine
+from repro_torch.serve.engine import (RequestState, ServeEngine,
+                                      SlotServeEngine)
+from repro_torch.serve.faults import FaultPlan
+from repro_torch.serve.frontend import AsyncFrontend, IntakeFullError
 from repro_torch.serve.kv_pages import PageLeakError
 from repro_torch.serve.scheduler import plan_admission
 from repro_torch.sync import SyncLibrary
@@ -53,13 +81,37 @@ def build(args, device):
     return cfg, model, model.init(gen, device)
 
 
-def make_engine(model, params, args, device, sync=None) -> SlotServeEngine:
+def make_sync_library(args) -> SyncLibrary:
+    """One SyncLibrary from the CLI knobs; injected everywhere."""
+    return SyncLibrary.host_default(
+        backend=None if args.sync_backend == "auto" else args.sync_backend,
+        semaphore_kind=(None if args.admission_sem == "auto"
+                        else args.admission_sem))
+
+
+def make_fault_plan(args) -> Optional[FaultPlan]:
+    """The chaos knob: one seeded FaultPlan driving every transient
+    injection site (allocator abort, dispatch failure, stuck holder) at
+    ``--fault-rate``, or None when chaos is off."""
+    if getattr(args, "fault_rate", 0.0) <= 0.0:
+        return None
+    return FaultPlan(args.fault_seed, alloc_rate=args.fault_rate,
+                     dispatch_rate=args.fault_rate,
+                     stuck_rate=args.fault_rate, stuck_hold_s=5e-3)
+
+
+def make_engine(model, params, args, device, sync=None,
+                fault_plan: Optional[FaultPlan] = None) -> SlotServeEngine:
+    """One engine from the CLI knobs, shared by both drive modes;
+    ``fault_plan`` replaces the one ``--fault-rate`` would build."""
+    if fault_plan is None:
+        fault_plan = make_fault_plan(args)
     return SlotServeEngine(
         model, params, capacity=args.capacity,
         max_len=args.prompt_len + args.new_tokens + 1,
         decode_chunk=args.decode_chunk, kv_layout=args.kv_layout,
         page_size=args.page_size, num_pages=args.num_pages,
-        page_growth=args.page_growth,
+        page_growth=args.page_growth, allocator_wait=args.allocator_wait,
         prefix_sharing=args.prefix_sharing,
         prefix_cache=args.prefix_cache,
         cache_watermark=args.cache_watermark,
@@ -67,7 +119,9 @@ def make_engine(model, params, args, device, sync=None) -> SlotServeEngine:
         round_token_budget=args.round_token_budget,
         attention_impl=args.attention_impl,
         bucketed_dispatch=args.bucketed_dispatch,
-        sync=sync if sync is not None else SyncLibrary.host_default(),
+        fault_plan=fault_plan,
+        allocator_watchdog_s=(1e-3 if fault_plan is not None else None),
+        sync=sync if sync is not None else make_sync_library(args),
         device=device)
 
 
@@ -103,6 +157,99 @@ def run_slot_engine(engine, prompts, new_tokens: int):
     if engine.device.type == "cuda":
         torch.cuda.synchronize(engine.device)
     return time.perf_counter() - t0
+
+
+def run_open_loop(model, params, prompts, args, device, sync=None,
+                  fault_plan: Optional[FaultPlan] = None,
+                  records: Optional[list] = None):
+    """Open-loop traffic through the asyncio front-end: Poisson arrivals
+    (``--arrival-rate``, seeded by ``--seed``), token streaming,
+    mid-stream cancellations, deadlines and the TTFT SLO. Returns
+    ``(engine, wall_s, report)``, the report carrying the open-loop
+    ledger: TTFT percentiles, SLO attainment, goodput, shed, cancelled,
+    expired and finished counts, rounds, and the pages still in use
+    after the drain. ``records``, when given, receives each client's
+    record: its index, streamed tokens, whether it was shed, and its
+    ``StreamHandle``."""
+    engine = make_engine(model, params, args, device, sync, fault_plan)
+    rng = np.random.default_rng(args.seed)
+    gaps_s = rng.exponential(1.0 / max(args.arrival_rate, 1e-9),
+                             len(prompts))
+    # which clients hang up, and after how many streamed tokens
+    cancel_after = [
+        (1 + int(rng.integers(0, max(args.new_tokens // 2, 1))))
+        if rng.random() < args.cancel_rate else None
+        for _ in prompts]
+    deadline_s = (args.deadline_ms / 1e3
+                  if args.deadline_ms is not None else None)
+    results = records if records is not None else []
+
+    async def client(fe, i, prompt):
+        rec = {"i": i, "tokens": [], "shed": False, "handle": None}
+        results.append(rec)
+        try:
+            h = await fe.submit(prompt, args.new_tokens,
+                                deadline_s=deadline_s)
+        except IntakeFullError:
+            rec["shed"] = True
+            return
+        rec["handle"] = h
+        async for tok in h:
+            rec["tokens"].append(tok)
+            if (cancel_after[i] is not None
+                    and len(rec["tokens"]) >= cancel_after[i]):
+                h.cancel()
+
+    async def drive():
+        async with AsyncFrontend(engine,
+                                 intake_limit=args.intake_limit) as fe:
+            tasks = []
+            for i, prompt in enumerate(prompts):
+                await asyncio.sleep(gaps_s[i])
+                tasks.append(asyncio.ensure_future(client(fe, i, prompt)))
+            await asyncio.gather(*tasks)
+            await fe.drain()
+            return fe.stats()
+
+    t0 = time.perf_counter()
+    fe_stats = asyncio.run(drive())
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize(engine.device)
+    wall_s = time.perf_counter() - t0
+
+    ttfts = sorted(r["handle"].ttft_s for r in results
+                   if r["handle"] is not None
+                   and r["handle"].ttft_s is not None)
+    slo_s = args.slo_ms / 1e3
+    good_tokens = sum(
+        len(r["tokens"]) for r in results
+        if r["handle"] is not None
+        and r["handle"].state is RequestState.FINISHED
+        and r["handle"].ttft_s is not None
+        and r["handle"].ttft_s <= slo_s)
+    leaked = 0
+    if args.kv_layout == "paged":
+        engine.pool.pages.check()      # raises PageLeakError on a leak
+        leaked = engine.pool.pages.num_pages - engine.pool.pages.n_free
+    report = {
+        "wall_s": wall_s,
+        "ttft_p50_ms": (1e3 * float(np.median(ttfts)) if ttfts
+                        else float("nan")),
+        "ttft_p99_ms": (1e3 * float(np.percentile(ttfts, 99)) if ttfts
+                        else float("nan")),
+        "slo_ms": args.slo_ms,
+        "slo_attainment": (len([t for t in ttfts if t <= slo_s])
+                           / max(len(ttfts), 1)),
+        "goodput_tok_per_s": good_tokens / wall_s,
+        "tok_per_s": fe_stats["tokens"] / wall_s,
+        "shed": int(fe_stats["frontend_shed"]),
+        "cancelled": int(fe_stats["cancelled"]),
+        "expired": int(fe_stats["expired"]),
+        "finished": int(fe_stats["finished"]),
+        "rounds": int(fe_stats["frontend_rounds"]),
+        "leaked_pages": int(leaked),
+    }
+    return engine, wall_s, report
 
 
 def run_legacy_loop(model, params, prompts, args, device):
@@ -154,6 +301,12 @@ def parser() -> argparse.ArgumentParser:
                     help="paged layout: grant pages per decode chunk "
                          "(admission gated by a headroom watermark) or "
                          "reserve the worst case at admission")
+    ap.add_argument("--allocator-wait", default=None,
+                    choices=("auto", "spin", "spin_backoff", "sleeping",
+                             "adaptive"),
+                    help="page-allocator mutex wait strategy; adaptive "
+                         "re-selects between rounds from measured "
+                         "contention (default: the library's choice)")
     ap.add_argument("--prefill-chunk-tokens", type=int, default=None,
                     help="chunked prefill: prompt tokens each prefilling "
                          "slot advances per scheduler round, inside the "
@@ -182,9 +335,45 @@ def parser() -> argparse.ArgumentParser:
                     choices=("auto", "on", "off"),
                     help="gather the active slots into power-of-2 "
                          "occupancy buckets per round")
+    ap.add_argument("--open-loop", action="store_true",
+                    help="drive the asyncio front-end instead of the "
+                         "closed loop: Poisson arrivals, token streaming, "
+                         "mid-stream cancellation, TTFT SLO")
+    ap.add_argument("--arrival-rate", type=float, default=16.0,
+                    help="open loop: mean client arrival rate, requests/s "
+                         "(exponential inter-arrival gaps)")
+    ap.add_argument("--cancel-rate", type=float, default=0.0,
+                    help="open loop: share of clients that cancel after a "
+                         "random number of streamed tokens")
+    ap.add_argument("--slo-ms", type=float, default=1000.0,
+                    help="open loop: time-to-first-token SLO; goodput "
+                         "counts only finished requests that met it")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="open loop: per-request deadline armed in the "
+                         "engine (queued past it: expired; active past it: "
+                         "late) (default: none)")
+    ap.add_argument("--intake-limit", type=int, default=256,
+                    help="open loop: bound on the ungranted population "
+                         "(intake + engine queue); submits past it are "
+                         "shed")
+    ap.add_argument("--fault-rate", type=float, default=0.0,
+                    help="chaos mode: per-consult probability of each "
+                         "injected fault (allocator batch abort, dispatch "
+                         "failure, stuck allocator holder); 0 = off")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="FaultPlan seed: same seed and workload inject "
+                         "the same faults at the same points")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--legacy", action="store_true",
                     help="also run the old per-request loop")
+    ap.add_argument("--sync-backend", default="auto",
+                    choices=("auto", "host", "cuda", "ref"),
+                    help="admission-planner backend (auto: from the "
+                         "machine abstraction and the device)")
+    ap.add_argument("--admission-sem", default="auto",
+                    choices=("auto", "sleeping", "spin", "spin_backoff"),
+                    help="live admission-gate semaphore algorithm (auto: "
+                         "the library's selection)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     return ap
@@ -194,11 +383,13 @@ def main(argv=None) -> SlotServeEngine:
     args = parser().parse_args(argv)
     device = resolve_device(args.device)
     cfg, model, params = build(args, device)
-    sync = SyncLibrary.host_default()
+    sync = make_sync_library(args)
     choice = sync.choice(PrimitiveKind.SEMAPHORE,
                          semaphore_initial=args.capacity)
-    print(f"[serve] {cfg.name} on {device}: gate={choice.algorithm}/"
-          f"{choice.strategy.value} planner="
+    gate = (choice.algorithm if args.admission_sem == "auto"
+            else args.admission_sem)
+    print(f"[serve] {cfg.name} on {device}: gate={gate} (selected "
+          f"{choice.algorithm}/{choice.strategy.value}) planner="
           f"{sync.planning_backend_name(device)} "
           f"machine={sync.machine.name}({sync.machine_class()})")
     plan = plan_admission(np.zeros(args.requests, np.float32),
@@ -208,9 +399,14 @@ def main(argv=None) -> SlotServeEngine:
     print(f"[serve] plan[{plan.backend}]: p50 wait {plan.p50_wait:.1f} "
           f"steps p99 {plan.p99_wait:.1f} makespan {plan.makespan:.1f} "
           f"queued {int(plan.waited.sum())}/{args.requests}")
-    engine = make_engine(model, params, args, device, sync)
     prompts = make_prompts(args, cfg.vocab_size)
-    dt = run_slot_engine(engine, prompts, args.new_tokens)
+    report = None
+    if args.open_loop:
+        engine, dt, report = run_open_loop(model, params, prompts, args,
+                                           device, sync)
+    else:
+        engine = make_engine(model, params, args, device, sync)
+        dt = run_slot_engine(engine, prompts, args.new_tokens)
     st = engine.stats()
     print(f"[serve] {args.kv_layout} engine: {int(st['finished'])} "
           f"requests, {int(st['tokens'])} tokens in {dt:.2f}s "
@@ -253,11 +449,38 @@ def main(argv=None) -> SlotServeEngine:
                   f"saved; {int(st['cache_pages_held'])} pages held / "
                   f"{int(st['cache_pages_donated'])} donated / "
                   f"{int(st['cache_pages_evicted'])} evicted")
+    if engine.fault_plan is not None:
+        fp = engine.fault_plan
+        print(f"[serve] chaos (seed {fp.seed}, rate {args.fault_rate}): "
+              f"{int(st['faults_injected'])} faults injected "
+              f"{dict(fp.by_kind)}, "
+              f"{int(st['rounds_retried'])} rounds retried, "
+              f"{int(st['requests_quarantined'])} quarantined, "
+              f"{int(st['failed'])} failed, "
+              f"{int(st.get('watchdog_trips', 0))} watchdog trips")
     fifo_ok = engine.grant_log == sorted(engine.grant_log)
     print(f"[serve] FIFO grant order: {'OK' if fifo_ok else 'VIOLATED'} "
           f"({len(engine.grant_log)} grants; semaphore admitted "
           f"{engine.admission.admitted}, completed "
           f"{engine.admission.completed})")
+    if report is not None:
+        print(f"[serve] open loop: {report['finished']} finished / "
+              f"{report['cancelled']} cancelled / "
+              f"{report['expired']} expired / {report['shed']} shed "
+              f"over {report['rounds']} rounds in {report['wall_s']:.2f}s")
+        print(f"[serve] open loop: TTFT p50 {report['ttft_p50_ms']:.0f}ms "
+              f"p99 {report['ttft_p99_ms']:.0f}ms, SLO {args.slo_ms:.0f}ms "
+              f"met by {report['slo_attainment']:.0%}, goodput "
+              f"{report['goodput_tok_per_s']:,.1f} tok/s of "
+              f"{report['tok_per_s']:,.1f} total; time-in-state p99 "
+              f"(steps): queued {st['p99_queued_steps']:.0f} / prefill "
+              f"{st['p99_prefill_steps']:.0f} / decode "
+              f"{st['p99_decode_steps']:.0f}")
+        if args.kv_layout == "paged":
+            print(f"[serve] open loop: leaked pages after drain: "
+                  f"{report['leaked_pages']} (free-list "
+                  f"{engine.pool.pages.n_free}/"
+                  f"{engine.pool.pages.num_pages})")
     enforce_leak_gate(engine)
     if not fifo_ok:
         raise SystemExit(1)

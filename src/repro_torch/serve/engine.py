@@ -45,9 +45,31 @@ write a shared page gets a private copy in the round's page-prep section
 split plans are host state: the split adds one index upload a round
 that splits, and no device read.
 
-Decoding is greedy. Outside this slice — and raising "not ported yet"
-rather than silently dropping anything: sampling, fault injection,
-cancellation and deadlines.
+**The request lifecycle** (as the reference's): ``cancel`` tears a
+request down in any state — at once in the queue, at the next round
+boundary once granted (its pages ride the round's retirement section,
+a cancelled chunked prefill donating its written pages to the prefix
+cache). Deadlines (``submit(deadline_step=, deadline_s=)``) expire a
+queued request before admission; a granted one turns *late*: its chunks
+go behind every on-time row and it is the first preemption victim, which
+expires it rather than requeueing it. A seeded ``FaultPlan`` injects
+allocator aborts (the batch rolls back; an aborted admission requeues
+its requests, an aborted page prep pauses the round), stuck allocator
+holders (``allocator_watchdog_s`` arms the mutex watchdog) and dispatch
+failures; a failed round is retried with backoff and the request blamed
+``quarantine_after`` times in a row ends ``FAILED``. A round's dispatch
+changes no host state before it returns — the arena writes it may have
+made land at positions at or past each row's length, and the replay
+rewrites them with the same values — so a retried round is the round
+that failed. One deliberate difference from the reference, which retries
+any exception of the dispatch: an error of the kernel layer
+(``kernels.build.KernelError``: a build, a launch or a device error
+word) or of the CUDA runtime leaves ``step`` at once, unretried, with
+nothing quarantined, so no fault of the card is absorbed as a round
+failure.
+
+Decoding is greedy; sampling raises "not ported yet" rather than
+silently running greedy.
 
 The reference relies on JAX's dropping scatters; the port masks lanes
 out *before* each scatter instead: the ``_DROP_POS`` write sentinel and
@@ -60,17 +82,20 @@ back, see ``_bucket_round``).
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import enum
 import math
 import time
-from typing import Deque, Dict, List, Optional, Tuple
+from typing import Deque, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
+from repro_torch.kernels.build import is_device_error
 from repro_torch.serve.dispatch import DecodeDispatchCache
+from repro_torch.serve.faults import FaultPlan, InjectedFault
 from repro_torch.serve.kv_pages import PagedSlotPool, PrefixIndex
 from repro_torch.serve.kv_slots import SlotPool
 from repro_torch.serve.prefix_cache import PrefixCache, cache_key_suffix
@@ -87,6 +112,18 @@ _DROP_POS = 2 ** 30
 
 def _not_ported(what: str):
     raise ValueError(f"{what} is not ported yet")
+
+
+class RoundDispatchError(RuntimeError):
+    """A scheduler round's dispatch failed on the host side. Carries the
+    blamed request id when the underlying fault named one; ``step``
+    retries the round with backoff and quarantines the blamed request
+    after ``quarantine_after`` consecutive failures. Errors of the kernel
+    layer or the CUDA runtime are never wrapped in it."""
+
+    def __init__(self, cause: BaseException, rid: Optional[int] = None):
+        self.rid = rid
+        super().__init__(f"round dispatch failed: {cause!r}")
 
 
 @dataclasses.dataclass
@@ -134,13 +171,29 @@ class ServeEngine:
 
 
 class RequestState(str, enum.Enum):
-    """QUEUED → PREFILLING → DECODING → FINISHED. A lazy-growth
-    preemption moves a request back to QUEUED (restart, not
-    termination)."""
+    """QUEUED → PREFILLING → DECODING → FINISHED is the happy path;
+    CANCELLED (torn down by the client), EXPIRED (past its deadline in
+    the queue, or evicted while late) and FAILED (quarantined after
+    repeated round failures) are the other terminal states. A
+    lazy-growth preemption moves an on-time request back to QUEUED
+    (restart, not termination)."""
     QUEUED = "queued"
     PREFILLING = "prefilling"
     DECODING = "decoding"
     FINISHED = "finished"
+    CANCELLED = "cancelled"
+    EXPIRED = "expired"
+    FAILED = "failed"
+
+    @property
+    def terminal(self) -> bool:
+        return self in _TERMINAL_STATES
+
+
+_TERMINAL_STATES = frozenset({RequestState.FINISHED,
+                              RequestState.CANCELLED,
+                              RequestState.EXPIRED,
+                              RequestState.FAILED})
 
 
 @dataclasses.dataclass
@@ -159,9 +212,16 @@ class ServeRequest:
     slot: int = -1
     eos: bool = False
     state: RequestState = RequestState.QUEUED
+    #: absolute deadlines on the step clock and on ``time.perf_counter``
+    #: (None: no SLO); past either, a queued request expires and an
+    #: active one is late
+    deadline_step: Optional[int] = None
+    deadline_s: Optional[float] = None
     decode_start_step: int = -1
     preemptions: int = 0
     prefill_chunks: int = 0
+    #: why the request FAILED (None in every other state)
+    error: Optional[str] = None
     out_tokens: List[int] = dataclasses.field(default_factory=list)
 
     @property
@@ -189,6 +249,18 @@ class ServeRequest:
             return 0
         return max(self.finish_step - self.decode_start_step, 0)
 
+    def past_deadline(self, step_clock: int,
+                      now_s: Optional[float] = None) -> bool:
+        """Whether either deadline has passed (a request AT its deadline
+        step is still on time)."""
+        if self.deadline_step is not None and step_clock > self.deadline_step:
+            return True
+        if self.deadline_s is not None:
+            if (now_s if now_s is not None
+                    else time.perf_counter()) > self.deadline_s:
+                return True
+        return False
+
 
 class SlotServeEngine:
     """Continuous-batching engine over a fixed KV slot arena.
@@ -205,7 +277,10 @@ class SlotServeEngine:
     paged layout) and ``prefix_cache`` ("off" by default; "auto": on for
     the paged layout) resolve as the reference's; ``cache_watermark`` is
     the free-page share the cache's eviction defends (default the
-    admission headroom).
+    admission headroom). ``fault_plan`` installs seeded fault injection;
+    ``quarantine_after`` consecutive failed rounds blamed on one request
+    fail it, ``retry_backoff_s`` spaces the retries, and
+    ``allocator_watchdog_s`` arms the page allocator's holder watchdog.
     """
 
     def __init__(self, model, params, *, capacity: int, max_len: int,
@@ -227,7 +302,10 @@ class SlotServeEngine:
                  cache_watermark: Optional[float] = None,
                  prefill_chunk_tokens: Optional[int] = None,
                  round_token_budget: Optional[int] = None,
-                 fault_plan=None,
+                 fault_plan: Optional[FaultPlan] = None,
+                 quarantine_after: int = 3,
+                 retry_backoff_s: float = 0.001,
+                 allocator_watchdog_s: Optional[float] = None,
                  attention_impl: str = "gather",
                  bucketed_dispatch: str = "auto",
                  sync: Optional[SyncLibrary] = None,
@@ -269,8 +347,6 @@ class SlotServeEngine:
                              "(the contiguous arena has no pages to retain)")
         if temperature > 0.0:
             _not_ported("sampling (temperature > 0)")
-        if fault_plan is not None:
-            _not_ported("fault injection")
         chunk = int(prefill_chunk_tokens) if prefill_chunk_tokens else 0
         if chunk < 0:
             raise ValueError("prefill_chunk_tokens must be >= 1 (or None)")
@@ -322,9 +398,21 @@ class SlotServeEngine:
                 sync=self.sync, wait_mode=allocator_wait,
                 expected_contention=allocator_contention(
                     capacity, service_steps=float(max_len)),
-                device=self.device)
+                watchdog_s=allocator_watchdog_s, device=self.device)
         else:
             self.pool = SlotPool(model, capacity, max_len, self.device)
+        # fault tolerance: dormant (no extra acquire, no extra state
+        # transition) unless a plan is installed or a round fails
+        self.fault_plan = fault_plan
+        self.quarantine_after = max(int(quarantine_after), 1)
+        self.retry_backoff_s = float(retry_backoff_s)
+        self.rounds_retried = 0
+        self.requests_quarantined = 0
+        #: rid -> consecutive round failures blamed on it; cleared by any
+        #: successful dispatch
+        self._round_failures: Dict[int, int] = {}
+        if self.paged and fault_plan is not None:
+            self.pool.pages.fault_hook = fault_plan.alloc_hook
         self.admission = AdmissionController(capacity, lib=self.sync)
         self._admission_planner = (
             self.sync.semaphore_planner(capacity, window=self.plan_window,
@@ -360,6 +448,10 @@ class SlotServeEngine:
         #: one-shot rounds whose admissions prefilled while a request
         #: was decoding (the stall chunked prefill removes)
         self.decode_rounds_stalled_by_prefill = 0
+        self.cancellations = 0   # requests torn down by cancel()
+        self.expiries = 0        # requests shed or evicted past a deadline
+        #: active rids whose cancellation waits for the next round boundary
+        self._cancel_pending: Set[int] = set()
         self._next_rid = 0
         self._last_tok = np.zeros(capacity, np.int32)
         self._steps_left = np.zeros(capacity, np.int64)
@@ -372,17 +464,19 @@ class SlotServeEngine:
         # the live index (generated-boundary registration, cache on)
         self._gen_reg = np.zeros(capacity, np.int64)
         #: page groups whose references must drop in the round's next
-        #: allocator section (cache evictions planned for an admission
-        #: that staged nobody)
+        #: allocator section (cancelled and quarantined requests' pages,
+        #: cache evictions planned for an admission that staged nobody)
         self._deferred_free: List[np.ndarray] = []
 
     # ------------------------------------------------------------ submission
     def submit(self, prompt, max_new_tokens: int, rid: Optional[int] = None,
                deadline_step: Optional[int] = None,
                deadline_s: Optional[float] = None) -> ServeRequest:
-        """Queue a request (deadlines are not ported yet)."""
-        if deadline_step is not None or deadline_s is not None:
-            _not_ported("request deadlines")
+        """Queue a request. ``deadline_step`` / ``deadline_s`` are
+        absolute (step clock / ``time.perf_counter()``): past either, the
+        request is shed from the queue as EXPIRED, and once granted it
+        turns late — its chunks go behind on-time rows and it is the
+        first page-pressure eviction victim, which expires it."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size + max_new_tokens + 1 > self.pool.virtual_max_len:
             raise ValueError(
@@ -394,12 +488,173 @@ class SlotServeEngine:
         req = ServeRequest(rid=rid, prompt=prompt,
                            max_new_tokens=max_new_tokens,
                            arrival_step=self.step_clock,
-                           arrival_s=time.perf_counter())
+                           arrival_s=time.perf_counter(),
+                           deadline_step=deadline_step,
+                           deadline_s=deadline_s)
         self.queue.append(req)
         return req
 
+    def _terminate(self, req: ServeRequest, state: RequestState,
+                   now_s: Optional[float] = None) -> None:
+        """Move ``req`` into a terminal state other than FINISHED, at the
+        current step."""
+        req.state = state
+        req.finish_step = self.step_clock
+        req.finish_s = time.perf_counter() if now_s is None else now_s
+        self.finished.append(req)
+
+    def _vacate(self, slot: int) -> Optional[np.ndarray]:
+        """Clear ``slot``'s cursors and counters, evict it and release its
+        grant; returns its pages (paged), which the caller frees or
+        defers."""
+        self._steps_left[slot] = 0
+        self._grow_cap[slot] = 0
+        self._pf_pos[slot] = 0
+        self._pf_end[slot] = 0
+        self._gen_reg[slot] = 0
+        held = (self.pool.evict(slot, free_pages=False) if self.paged
+                else self.pool.evict(slot))
+        self.admission.release_slot()
+        return held if self.paged else None
+
+    # ---------------------------------------------------------- cancellation
     def cancel(self, rid: int) -> bool:
-        _not_ported("cancellation")
+        """Request cancellation of ``rid``; True when it was still live
+        (queued or active). A queued request is torn down at once (it
+        holds no slot and no page). An active one is retired at the next
+        round boundary: its slot and semaphore grant free before that
+        round's admission, and its pages (shared ones decref) ride the
+        round's retirement section — no extra allocator acquire."""
+        for req in self.queue:
+            if req.rid == rid:
+                self.queue.remove(req)
+                self._terminate(req, RequestState.CANCELLED)
+                self.cancellations += 1
+                return True
+        for req in self.active.values():
+            if req.rid == rid:
+                self._cancel_pending.add(rid)
+                return True
+        return rid in self._cancel_pending
+
+    def _apply_cancels(self) -> int:
+        """Round-boundary cancellation: retire every marked active slot,
+        deferring its pages to the round's retirement section. A request
+        torn down mid-prefill donates its written full pages to the
+        prefix cache up to its cursor."""
+        if not self._cancel_pending:
+            return 0
+        rids, self._cancel_pending = self._cancel_pending, set()
+        slots = [s for s, r in self.active.items() if r.rid in rids]
+        for slot in slots:
+            req = self.active.pop(slot)
+            self._terminate(req, RequestState.CANCELLED)
+            # the written extent, read before the cursors reset
+            pf_pos = (int(self._pf_pos[slot])
+                      if self._prefilling(slot) else None)
+            held = self._donate_on_retire(req, self._vacate(slot),
+                                          prefill_pos=pf_pos)
+            if held is not None and held.size:
+                self._deferred_free.append(held)
+            self.cancellations += 1
+        return len(slots)
+
+    # -------------------------------------------------------------- deadlines
+    def _expire_queued(self) -> int:
+        """Shed queued requests already past their deadline, before the
+        admission plan (which then never plans an expired request)."""
+        if not any(r.deadline_step is not None or r.deadline_s is not None
+                   for r in self.queue):
+            return 0
+        now_s = time.perf_counter()
+        keep: Deque[ServeRequest] = collections.deque()
+        n = 0
+        for req in self.queue:
+            if req.past_deadline(self.step_clock, now_s):
+                self._terminate(req, RequestState.EXPIRED, now_s)
+                self.expiries += 1
+                n += 1
+            else:
+                keep.append(req)
+        self.queue = keep
+        return n
+
+    def _late(self, slot: int) -> bool:
+        """Whether the active request in ``slot`` is past its deadline."""
+        return self.active[slot].past_deadline(self.step_clock)
+
+    # --------------------------------------------------------- fault recovery
+    def _faults_off(self):
+        """Suppress injection: recovery and compensation run under it, so
+        a rollback can never itself be faulted into a wedge."""
+        if self.fault_plan is not None:
+            return self.fault_plan.suspended()
+        return contextlib.nullcontext()
+
+    def _free_batch_safe(self, groups) -> List[int]:
+        """``free_batch`` that survives an injected mid-batch fault: the
+        undo journal rolled the batch back, so the retry (injection
+        suspended) applies it. Real allocator errors still propagate."""
+        if not groups:
+            return []
+        try:
+            return self.pool.pages.free_batch(groups)
+        except InjectedFault:
+            with self._faults_off():
+                return self.pool.pages.free_batch(groups)
+
+    def _quarantine(self, rid: int, exc: BaseException) -> None:
+        """Evict one repeatedly blamed request into FAILED: its slot and
+        grant free at once, its pages ride the deferred frees, and none is
+        donated (its K/V is suspect)."""
+        slot = next(s for s, r in self.active.items() if r.rid == rid)
+        req = self.active.pop(slot)
+        req.error = str(exc)
+        self._terminate(req, RequestState.FAILED)
+        held = self._vacate(slot)
+        if held is not None and held.size:
+            self._deferred_free.append(held)
+        self.requests_quarantined += 1
+
+    def _recover_round(self, exc: BaseException) -> None:
+        """Blame one round failure — on the fault's own rid when it names
+        a live request, else on the newest grant — and quarantine the
+        culprit once it reaches ``quarantine_after`` in a row."""
+        live = {r.rid for r in self.active.values()}
+        if not live:
+            return
+        rid = getattr(exc, "rid", None)
+        if rid is None or rid not in live:
+            rid = max(live)
+        self._round_failures[rid] = self._round_failures.get(rid, 0) + 1
+        if self._round_failures[rid] >= self.quarantine_after:
+            self._quarantine(rid, exc)
+            self._round_failures.pop(rid, None)
+
+    def _reserve_staged(self, staged, grant_at: int, shared_at: int,
+                        evict_groups) -> Optional[list]:
+        """The admission batch's one allocator section (``staged`` tuples
+        hold the request, its slot, its grant at ``grant_at`` and its
+        adopted pages at ``shared_at``). If an injected fault aborts it
+        (the undo journal rolled every grant, incref and decref back),
+        the batch is unstaged — slots and grants return, the requests go
+        back to the queue front in arrival order, the planned cache
+        evictions land with injection suspended (the trie already forgot
+        them) — and None is returned."""
+        try:
+            return self.pool.reserve_batch(
+                [(t[1], t[grant_at]) for t in staged],
+                shared=[t[shared_at] for t in staged],
+                evict=evict_groups or None)
+        except InjectedFault:
+            for t in reversed(staged):
+                self.pool.evict(t[1], free_pages=False)
+                self.admission.release_slot()
+                self.queue.appendleft(t[0])
+            with self._faults_off():
+                self._free_batch_safe(evict_groups)
+            self.rounds_retried += 1
+            return None
 
     # ------------------------------------------------------------- admission
     def _planned_admit_count(self) -> int:
@@ -594,10 +849,11 @@ class SlotServeEngine:
             # retirement section
             self._deferred_free.extend(evict_groups)
             return 0
-        grants = (self.pool.reserve_batch(
-            [(t[1], t[5]) for t in staged], shared=[t[6] for t in staged],
-            evict=evict_groups or None)
-            if self.paged else [None] * len(staged))
+        grants = [None] * len(staged)
+        if self.paged:
+            grants = self._reserve_staged(staged, 5, 6, evict_groups)
+            if grants is None:
+                return 0
         instant = []                 # eos / no budget on the prefill token
         dev = self.device
         for (req, slot, lp, bucket, reserve, grant, sh_ids, sh_len,
@@ -722,10 +978,11 @@ class SlotServeEngine:
         if not staged:
             self._deferred_free.extend(evict_groups)
             return 0
-        grants = (self.pool.reserve_batch(
-            [(t[1], t[3]) for t in staged], shared=[t[4] for t in staged],
-            evict=evict_groups or None)
-            if self.paged else [None] * len(staged))
+        grants = [None] * len(staged)
+        if self.paged:
+            grants = self._reserve_staged(staged, 3, 4, evict_groups)
+            if grants is None:
+                return 0
         for (req, slot, lp, _, sh_ids, sh_len, from_cache), ids in zip(
                 staged, grants):
             if self.paged:
@@ -807,32 +1064,30 @@ class SlotServeEngine:
         deferred = self._deferred_free + deferred
         self._deferred_free = []
         if deferred:
-            self.pool.pages.free_batch(deferred)
+            self._free_batch_safe(deferred)
 
     def _flush_deferred_frees(self) -> None:
-        """Land deferred cache evictions when a round ends before its
-        retirement section."""
+        """Land deferred frees when a round ends before its retirement
+        section."""
         if self._deferred_free:
-            self.pool.pages.free_batch(self._deferred_free)
+            self._free_batch_safe(self._deferred_free)
             self._deferred_free = []
 
     # --------------------------------------------- lazy page growth (paged)
     def _preempt(self, slot: int) -> None:
-        """Lazy-overflow eviction: the victim's pages return now and it
-        goes back to the queue front, to restart from its prompt (greedy
-        decoding regenerates the same stream; its first grant keeps the
-        FIFO log entry)."""
+        """Lazy-overflow eviction: the victim's pages return now. An
+        on-time victim goes back to the queue front, to restart from its
+        prompt (greedy decoding regenerates the same stream; its first
+        grant keeps the FIFO log entry); a late one expires instead."""
         req = self.active.pop(slot)
-        held = self.pool.evict(slot, free_pages=False)
-        if held.size:
-            self.pool.pages.free_batch([held])
-        self.admission.release_slot()
-        self._steps_left[slot] = 0
-        self._grow_cap[slot] = 0
-        self._pf_pos[slot] = 0
-        self._pf_end[slot] = 0
-        self._gen_reg[slot] = 0
+        held = self._vacate(slot)
+        if held is not None and held.size:
+            self._free_batch_safe([held])
         req.slot = -1
+        if req.past_deadline(self.step_clock):
+            self._terminate(req, RequestState.EXPIRED)
+            self.expiries += 1
+            return
         req.state = RequestState.QUEUED
         req.eos = False
         req.out_tokens = []
@@ -918,8 +1173,19 @@ class SlotServeEngine:
                     evict_groups, _ = self._plan_evictions(
                         needed + self._watermark_pages()
                         - self.pool.pages.n_free)
-            _, split_ok = self.pool.prepare_batch(items, splits,
-                                                  evict_groups=evict_groups)
+            try:
+                _, split_ok = self.pool.prepare_batch(
+                    items, splits, evict_groups=evict_groups)
+            except InjectedFault:
+                # the undo journal rolled every grant back: land the
+                # planned evictions, pause every decoding row this round
+                # (their lengths roll back after the dispatch) and retry
+                # the top-ups next round
+                with self._faults_off():
+                    self._free_batch_safe(evict_groups)
+                self.rounds_retried += 1
+                self.pauses += len(decode_live)
+                return set(decode_live), set()
             self.cow_splits += sum(split_ok)
             paused = {s for s in decode_live
                       if self.pool.held_pages(s) * ps
@@ -934,7 +1200,10 @@ class SlotServeEngine:
                     chunk_live):
                 self.pauses += len(paused)
                 return paused, chunk_set - starved
-            victim = max(order, key=lambda s: self.active[s].rid)
+            # late rows first (evicting one expires it), else the
+            # youngest grant
+            victim = max(order,
+                         key=lambda s: (self._late(s), self.active[s].rid))
             self._preempt(victim)
             order.remove(victim)
             chunk_set.discard(victim)
@@ -950,7 +1219,6 @@ class SlotServeEngine:
         for _ in range(steps):
             logits, cache = self.model.decode_step(
                 self.params, cache, tok, attn_impl=self.attention_impl)
-            self.decode_steps_run += 1
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
             nxt = torch.where(frozen, tok, nxt)
             if self.eos_id is not None:
@@ -979,9 +1247,6 @@ class SlotServeEngine:
         scattered back (the reference drops the pad lanes' scatter-back
         at the out-of-range row ``K``)."""
         K = self.capacity
-        self._dispatch_cache.record_shape(
-            ("round", len(rows), steps, 0 if pf is None else pf[0].shape[1])
-            if self.prefill_chunk else ("decode", len(rows), steps))
         live = np.flatnonzero(rows < K)
         dev = self.device
         r = torch.from_numpy(np.minimum(rows, K - 1).astype(np.int64)).to(dev)
@@ -997,6 +1262,9 @@ class SlotServeEngine:
         cache_o, tok_b, toks_b, pf_logits_b = self._round(
             cache_b, torch.where(pad, 0, last_tok[r]), frozen[r] | pad, pf,
             steps)
+        self._dispatch_cache.record_shape(
+            ("round", len(rows), steps, 0 if pf is None else pf[0].shape[1])
+            if self.prefill_chunk else ("decode", len(rows), steps))
         src = torch.from_numpy(live).to(dev)
         dst = torch.from_numpy(rows[live].astype(np.int64)).to(dev)
         out = dict(cache_o)
@@ -1014,52 +1282,14 @@ class SlotServeEngine:
             pf_logits[dst] = pf_logits_b[src]
         return out, tok, toks, pf_logits
 
-    # ------------------------------------------------------------ decode loop
-    def step(self) -> int:
-        """One scheduler round: re-tune the allocator's wait strategy
-        (paged), admit per the Algorithm-5 plan, prepare pages, dispatch,
-        retire. Returns the number of still-active requests."""
-        if self.paged:
-            self.pool.retune()
-        self._admit()
-        if not self.active:
-            self._flush_deferred_frees()
-            return 0
-        return self._run_round()
-
-    def _run_round(self) -> int:
-        steps = self.decode_chunk
+    def _dispatch(self, view, frozen: np.ndarray, chunk_rows: List[int],
+                  steps: int):
+        """The round's device work: ``steps`` decode steps over the rows
+        (bucketed when on), then the prefill chunk of ``chunk_rows``.
+        Returns ``(cache, tok, toks, pf_logits, valid)``, where ``valid``
+        is each chunk row's real lane count. It changes no host state, so
+        a failed dispatch can be replayed as it stood."""
         C = self.prefill_chunk
-        planned: List[int] = []
-        if C:
-            backlog = sorted((s for s in self.active if self._prefilling(s)),
-                             key=lambda s: self.active[s].rid)
-            decode_rows = [s for s in self.active
-                           if not self._prefilling(s)]
-            planned = plan_round(
-                self.round_token_budget, decode_rows, backlog,
-                chunk_tokens=C, decode_chunk=steps,
-                remaining={s: int(self._pf_end[s] - self._pf_pos[s])
-                           for s in backlog}).chunk_rows
-        if self.paged:
-            paused, advancing = self._grow_for_chunk(steps, tuple(planned))
-        else:
-            paused, advancing = set(), set(planned)
-        if not self.active:                    # everything preempted away
-            self._flush_deferred_frees()
-            return 0
-        chunk_rows = [s for s in planned
-                      if s in advancing and s in self.active]
-        pf_rows = [s for s in self.active if self._prefilling(s)]
-        frozen = np.ones(self.capacity, bool)
-        for slot in self.active:
-            if slot not in paused and not self._prefilling(slot):
-                frozen[slot] = False
-        lens_before = self.pool.lens_numpy() if paused else None
-        view = self.pool.cache_view()
-        if paused:
-            # paused rows must not touch the arena this round
-            view["pages"] = self.pool.masked_table(paused)
         dev = self.device
         pf = None
         valid: Dict[int, int] = {}
@@ -1084,12 +1314,97 @@ class SlotServeEngine:
             # vacant slots stay out
             kb = self._dispatch_cache.bucket(len(self.active))
             rows = self._dispatch_cache.pad_rows(sorted(self.active), kb)
-            cache, tok, toks, pf_logits = self._bucket_round(
-                view, rows, last_tok, frozen_t, pf, steps)
+            return (*self._bucket_round(view, rows, last_tok, frozen_t, pf,
+                                        steps), valid)
+        return (*self._round(view, last_tok, frozen_t, pf, steps), valid)
+
+    # ------------------------------------------------------------ decode loop
+    def step(self) -> int:
+        """One scheduler round: apply round-boundary cancellations and
+        queue expiries, re-tune the allocator's wait strategy (paged),
+        admit per the Algorithm-5 plan, prepare pages, dispatch, retire.
+        A failed dispatch is retried with linear backoff; the request
+        blamed ``quarantine_after`` times in a row is quarantined, and
+        the attempt cap bounds even a round that always fails (every
+        failure advances some rid's streak). Errors of the kernel layer
+        and of the CUDA runtime are not retried. Returns the number of
+        still-active requests."""
+        self._apply_cancels()
+        self._expire_queued()
+        if self.paged:
+            self.pool.retune()
+        self._admit()
+        if not self.active:
+            self._flush_deferred_frees()
+            return 0
+        attempts = 0
+        max_attempts = self.quarantine_after * (len(self.active) + 1)
+        while True:
+            try:
+                n = self._run_round()
+            except (InjectedFault, RoundDispatchError) as exc:
+                attempts += 1
+                self.rounds_retried += 1
+                self._recover_round(exc)
+                if not self.active:
+                    self._flush_deferred_frees()
+                    return 0
+                if attempts >= max_attempts:
+                    raise
+                if self.retry_backoff_s > 0:
+                    time.sleep(self.retry_backoff_s * attempts)
+                continue
+            self._round_failures.clear()
+            return n
+
+    def _run_round(self) -> int:
+        steps = self.decode_chunk
+        C = self.prefill_chunk
+        planned: List[int] = []
+        if C:
+            backlog = sorted((s for s in self.active if self._prefilling(s)),
+                             key=lambda s: self.active[s].rid)
+            decode_rows = [s for s in self.active
+                           if not self._prefilling(s)]
+            planned = plan_round(
+                self.round_token_budget, decode_rows, backlog,
+                chunk_tokens=C, decode_chunk=steps,
+                deprioritized=[s for s in backlog if self._late(s)],
+                remaining={s: int(self._pf_end[s] - self._pf_pos[s])
+                           for s in backlog}).chunk_rows
+        if self.paged:
+            paused, advancing = self._grow_for_chunk(steps, tuple(planned))
         else:
-            cache, tok, toks, pf_logits = self._round(
-                view, last_tok, frozen_t, pf, steps)
+            paused, advancing = set(), set(planned)
+        if not self.active:                    # everything preempted away
+            self._flush_deferred_frees()
+            return 0
+        chunk_rows = [s for s in planned
+                      if s in advancing and s in self.active]
+        pf_rows = [s for s in self.active if self._prefilling(s)]
+        frozen = np.ones(self.capacity, bool)
+        for slot in self.active:
+            if slot not in paused and not self._prefilling(slot):
+                frozen[slot] = False
+        lens_before = self.pool.lens_numpy() if paused else None
+        view = self.pool.cache_view()
+        if paused:
+            # paused rows must not touch the arena this round
+            view["pages"] = self.pool.masked_table(paused)
+        try:
+            if self.fault_plan is not None:
+                self.fault_plan.dispatch(
+                    [r.rid for r in self.active.values()])
+            cache, tok, toks, pf_logits, valid = self._dispatch(
+                view, frozen, chunk_rows, steps)
+        except InjectedFault:
+            raise
+        except Exception as exc:
+            if is_device_error(exc):
+                raise
+            raise RoundDispatchError(exc) from exc
         self.decode_dispatches += 1
+        self.decode_steps_run += steps
         self.pool.adopt(cache)
         self._last_tok = tok.cpu().numpy().astype(np.int32)
         toks = toks.cpu().numpy()                          # [steps, K]
@@ -1197,26 +1512,43 @@ class SlotServeEngine:
             return 0
         groups = self.prefix_cache.drop_all()
         if groups:
-            self.pool.pages.free_batch(groups)
+            self._free_batch_safe(groups)
         return int(sum(g.size for g in groups))
 
     # -------------------------------------------------------------- reporting
     def stats(self) -> Dict[str, float]:
-        """Aggregate serving counters (the reference's keys that this
-        slice fills; all floats; the allocator's only on the paged
-        layout)."""
+        """Aggregate serving counters (the reference's keys; all floats;
+        the allocator's only on the paged layout). ``finished`` counts
+        FINISHED requests, ``terminal`` every terminal one; ``tokens``
+        every token delivered, a cancelled stream's prefix included. The
+        fault counters are structurally 0 in a fault-free run. Wait and
+        time-in-state percentiles are over granted terminal requests."""
         term = self.finished
+        fin = [r for r in term if r.state is RequestState.FINISHED]
         granted = [r for r in term if r.grant_step >= 0]
         waits = np.asarray([r.wait_steps for r in granted], np.float32)
         waits_s = np.asarray([r.wait_s for r in granted], np.float32)
         toks = int(sum(len(r.out_tokens) for r in term))
+        now_s = time.perf_counter()
 
         def pctl(vals, q):
             arr = np.asarray(vals, np.float32)
             return float(np.percentile(arr, q)) if arr.size else 0.0
 
+        q_steps = [r.queued_steps for r in granted]
+        pf_steps = [r.prefill_steps for r in granted]
+        dec_steps = [r.decode_steps for r in granted]
         out = {
-            "finished": float(len(term)),
+            "finished": float(len(fin)),
+            "terminal": float(len(term)),
+            "cancelled": float(self.cancellations),
+            "expired": float(self.expiries),
+            "failed": float(sum(
+                1 for r in term if r.state is RequestState.FAILED)),
+            "faults_injected": float(
+                self.fault_plan.injected if self.fault_plan else 0),
+            "rounds_retried": float(self.rounds_retried),
+            "requests_quarantined": float(self.requests_quarantined),
             "tokens": float(toks),
             "decode_dispatches": float(self.decode_dispatches),
             "decode_steps": float(self.decode_steps_run),
@@ -1226,10 +1558,18 @@ class SlotServeEngine:
             "p99_wait_s": pctl(waits_s, 99),
             "queue_depth": float(len(self.queue)),
             "active_rows": float(len(self.active)),
-            "p99_queued_steps": pctl([r.queued_steps for r in granted], 99),
-            "p99_prefill_steps": pctl([r.prefill_steps for r in granted],
-                                      99),
-            "p99_decode_steps": pctl([r.decode_steps for r in granted], 99),
+            "p50_queued_steps": pctl(q_steps, 50),
+            "p99_queued_steps": pctl(q_steps, 99),
+            "p50_prefill_steps": pctl(pf_steps, 50),
+            "p99_prefill_steps": pctl(pf_steps, 99),
+            "p50_decode_steps": pctl(dec_steps, 50),
+            "p99_decode_steps": pctl(dec_steps, 99),
+            "deadline_rows": float(sum(
+                1 for r in self.active.values()
+                if r.deadline_step is not None or r.deadline_s is not None)),
+            "late_rows": float(sum(
+                r.past_deadline(self.step_clock, now_s)
+                for r in self.active.values())),
             "semaphore_admitted": float(self.admission.admitted),
             "semaphore_completed": float(self.admission.completed),
             "prefill_chunk_tokens": float(self.prefill_chunk),
@@ -1266,6 +1606,7 @@ class SlotServeEngine:
             "lock_acquires_per_token": (float(ls["acquires"])
                                         / float(max(toks, 1))),
             "lock_retunes": float(ls.get("retunes", 0)),
+            "watchdog_trips": float(ls.get("watchdog_trips", 0)),
             "aborted_batches": float(pp.aborted_batches),
             "per_page_lock_acquires": float(pp.pages_alloced
                                             + pp.pages_freed),
@@ -1294,4 +1635,22 @@ class SlotServeEngine:
         })
         if self.prefix_cache is not None:
             out.update(self.prefix_cache.stats())
+        return out
+
+    def slot_deadlines(self) -> Dict[int, Dict[str, float]]:
+        """Per-slot deadline metadata of the in-flight rows: rid, state,
+        absolute step deadline (-1: none), steps of slack on the step
+        clock (negative once late) and whether the row is late now."""
+        now_s = time.perf_counter()
+        out: Dict[int, Dict[str, float]] = {}
+        for slot, req in sorted(self.active.items()):
+            dl = req.deadline_step
+            out[slot] = {
+                "rid": float(req.rid),
+                "state": req.state.value,
+                "deadline_step": float(dl if dl is not None else -1),
+                "slack_steps": (float(dl - self.step_clock)
+                                if dl is not None else float("inf")),
+                "late": bool(req.past_deadline(self.step_clock, now_s)),
+            }
         return out

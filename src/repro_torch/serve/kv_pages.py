@@ -86,13 +86,16 @@ class PagePool:
     free decrefs — a page returns to the free list when its count hits
     zero. ``fault_hook(stage)``, when set, is called at named points
     inside the critical section; if it raises, the undo journal rolls
-    the batch back and the exception propagates.
+    the batch back and the exception propagates. ``watchdog_s`` arms the
+    mutex's holder watchdog: a critical section held longer counts one
+    ``watchdog_trips`` in :meth:`lock_stats`.
     """
 
     def __init__(self, num_pages: int, page_size: int, *,
                  sync: Optional[SyncLibrary] = None,
                  expected_contention: float = 0.25,
-                 wait_mode: Optional[str] = None):
+                 wait_mode: Optional[str] = None,
+                 watchdog_s: Optional[float] = None):
         if num_pages < 1 or page_size < 1:
             raise ValueError("num_pages and page_size must be >= 1")
         if wait_mode not in (None, "auto", "adaptive", *_WAIT_MODES):
@@ -126,6 +129,10 @@ class PagePool:
         self.grant_log: List[Any] = []
         self.fault_hook = None
         self.aborted_batches = 0
+        if watchdog_s is not None:
+            wd = getattr(self.mutex, "set_watchdog", None)
+            if wd is not None:
+                wd(watchdog_s)
 
     # ----------------------------------------------------------------- state
     @property
@@ -591,6 +598,7 @@ class PagedSlotPool:
                  sync: Optional[SyncLibrary] = None,
                  expected_contention: float = 0.25,
                  wait_mode: Optional[str] = None,
+                 watchdog_s: Optional[float] = None,
                  device=None):
         if capacity < 1:
             raise ValueError("slot pool capacity must be >= 1")
@@ -602,7 +610,7 @@ class PagedSlotPool:
             num_pages = -(-capacity * max_len // page_size)
         self.pages = PagePool(num_pages, page_size, sync=sync,
                               expected_contention=expected_contention,
-                              wait_mode=wait_mode)
+                              wait_mode=wait_mode, watchdog_s=watchdog_s)
         if max_pages_per_slot is None:
             max_pages_per_slot = -(-2 * max_len // page_size)
         self.max_pages_per_slot = min(max_pages_per_slot, num_pages)

@@ -7,7 +7,11 @@ from repro_torch.sync.backends import (  # noqa: F401
     KernelBackend,
     SyncBackend,
 )
-from repro_torch.sync.library import HOST_NOMINAL, SyncLibrary  # noqa: F401
+from repro_torch.sync.library import (  # noqa: F401
+    HOST_NOMINAL,
+    SyncLibrary,
+    SyncTimeoutError,
+)
 from repro_torch.sync.protocols import (  # noqa: F401
     Barrier,
     BarrierPlan,

@@ -33,6 +33,7 @@ HOST_MUTEXES = {
         strategy=WaitStrategy.SPIN_BACKOFF),
     "fa": lambda strat: hostsync.TicketMutex(strategy=strat),
     "ticket": lambda strat: hostsync.TicketMutex(strategy=strat),
+    "futex": lambda strat: hostsync.FutexMutex(),
 }
 HOST_SEMAPHORES = {
     "spin": lambda n, strat: hostsync.SpinSemaphore(
@@ -61,9 +62,6 @@ class SyncBackend:
 
     # ------------------------------------------------------------- live form
     def mutex(self, algorithm: str, strategy: WaitStrategy):
-        if algorithm not in HOST_MUTEXES:
-            raise ValueError(f"mutex algorithm {algorithm!r} is not ported "
-                             f"yet; have {sorted(HOST_MUTEXES)}")
         return HOST_MUTEXES[algorithm](strategy)
 
     def semaphore(self, initial: int, algorithm: str,

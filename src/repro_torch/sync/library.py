@@ -12,6 +12,7 @@ triple and every axis can be pinned:
     mplan = lib.plan_mutex(arrival_perm, backend="cuda")
     bplan = SyncLibrary(machine=FERMI).plan_barrier(present)  # on cuda
     planner = lib.semaphore_planner(8, window=64, device="cuda")
+    SyncLibrary.acquire(m, timeout=0.5)        # SyncTimeoutError on expiry
 
 Live objects run on the host; plans run on the ``cuda`` kernels, their
 plain versions (``ref``), or as observed executions of the live
@@ -45,6 +46,39 @@ from .protocols import (
     MutexPlan,
     SemaphorePlan,
 )
+
+class SyncTimeoutError(TimeoutError):
+    """A bounded acquire exhausted its wait budget.
+
+    Raised by :meth:`SyncLibrary.acquire` when the primitive's boolean
+    ``timeout=`` form returns False. The primitive is *not* held: every
+    host implementation leaves itself consistent on timeout (the ticket
+    mutex burns its ticket, the sleeping semaphore rolls its count
+    back), so the caller may retry, back off, or fail the enclosing
+    operation without any cleanup."""
+
+    def __init__(self, primitive: object, timeout_s: Optional[float],
+                 what: str = ""):
+        self.primitive = primitive
+        self.timeout_s = timeout_s
+        name = type(primitive).__name__
+        super().__init__(
+            f"{what or name}: not acquired within "
+            f"{timeout_s if timeout_s is not None else 'inf'}s "
+            f"({name})")
+
+
+def _bounded_acquire(prim, timeout: Optional[float]) -> bool:
+    """One bounded acquire on any live primitive: mutexes expose
+    ``lock(timeout=)``, semaphores ``wait(timeout=)`` — both return
+    False on expiry and leave the primitive consistent."""
+    if hasattr(prim, "lock"):
+        return bool(prim.lock(timeout=timeout))
+    if hasattr(prim, "wait"):
+        return bool(prim.wait(timeout=timeout))
+    raise TypeError(f"{type(prim).__name__} has no bounded acquire form "
+                    "(expected .lock or .wait)")
+
 
 # A nominal host abstraction for when probing is not worth it (serving
 # constructors). Classifies as "balanced": fa mutex, sleeping semaphore.
@@ -134,6 +168,25 @@ class SyncLibrary:
         kind = kind or self.barrier_kind or c.algorithm
         return self._backend().barrier(parties, kind,
                                        self.strategy or c.strategy)
+
+    # --------------------------------------------------------- bounded waits
+    @staticmethod
+    def acquire(prim, timeout: Optional[float] = None,
+                what: str = "") -> None:
+        """Acquire a live mutex or semaphore, raising
+        :class:`SyncTimeoutError` if ``timeout`` (seconds) expires — the
+        exception-typed form of the primitives' boolean ``timeout=``
+        protocol. ``timeout=None`` waits unboundedly (never raises)."""
+        if not _bounded_acquire(prim, timeout):
+            raise SyncTimeoutError(prim, timeout, what)
+
+    @staticmethod
+    def try_acquire(prim) -> bool:
+        """A zero-budget bounded acquire: True iff the primitive was
+        taken at once. The FIFO ticket mutex still burns its ticket on
+        failure (it waits for its turn so later tickets never deadlock):
+        bounded by one holder's critical section, not O(1)."""
+        return _bounded_acquire(prim, 0.0)
 
     # ------------------------------------------------------------- plan form
     def plan_semaphore(self, arrivals, holds, capacity: int, *,

@@ -5,8 +5,9 @@ capacity 3, fused attention, bucketed dispatch on and off, prefix
 sharing off. Greedy token streams, the FIFO ``grant_log``, the
 allocator's lock acquires, pauses and preemptions must be identical,
 and both pools must drain to zero pages in use — including arenas small
-enough to pause and preempt. Also: every feature outside the slice
-raises at construction, the former gaps (the slot arena, one-shot
+enough to pause and preempt. Also: sampling, still outside the port,
+raises at construction; fault injection, cancellation and deadlines
+serve and match; the former gaps (the slot arena, one-shot
 prefill, eager growth, prefix sharing and the prefix cache) serve and
 match the reference, the prefix defaults resolve as the reference's,
 and the entry point refuses to run without a card unless asked for the
@@ -119,16 +120,19 @@ def test_bucket_pad_lanes_leave_vacant_slots_untouched(models):
     (dict(prefix_sharing="auto"), "prefix sharing"),
     (dict(prefix_cache="on"), "prefix cache"),
     (dict(prefix_cache="auto"), "prefix cache"),
-    (dict(fault_plan=object()), "fault injection"),
-    (dict(kv_layout="slots", fault_plan=object()), "fault injection"),
+    (dict(fault_plan="seeded"), "fault injection"),
+    (dict(kv_layout="slots", fault_plan="seeded"), "fault injection"),
 ])
 def test_features_outside_the_slice_raise(models, kw, what):
-    """Still outside: sampling and fault injection. Prefix sharing and
-    the prefix cache ("on", and "auto" on the paged layout) were outside
-    until this slice: those cases now build, serve to the end and match
+    """Still outside: sampling. Prefix sharing and the prefix cache ("on",
+    and "auto" on the paged layout) and fault injection were outside in
+    earlier slices: those cases now build, serve to the end and match
     the JAX engine."""
     if what.startswith("prefix"):
         _serve_prefix_case(models, kw)
+        return
+    if what == "fault injection":
+        _serve_fault_case(models, kw)
         return
     _, _, tm, tp = models
     args = dict(capacity=2, max_len=16, kv_layout="paged",
@@ -174,6 +178,37 @@ def _serve_prefix_case(models, kw):
     assert outs[1][3]["prefix_hits"] > 0
 
 
+def _serve_fault_case(models, kw):
+    """Four requests under one seeded FaultPlan (allocator aborts and
+    dispatch failures; the slot arena has no allocator, so only the
+    latter fire there): streams, ``grant_log``, the faults by kind and
+    the retry counts equal the JAX engine's, every request finishes."""
+    from repro.serve.faults import FaultPlan as JFaultPlan
+    from repro_torch.serve.faults import FaultPlan
+    jm, jp, tm, tp = models
+    kw = {k: v for k, v in kw.items() if k != "fault_plan"}
+    reqs = _requests(3, n=4)
+    outs = []
+    for cls, m, p, extra, plan in ((JEngine, jm, jp, {"seed": 0},
+                                    JFaultPlan),
+                                   (SlotServeEngine, tm, tp,
+                                    {"device": "cpu"}, FaultPlan)):
+        fp = plan(31, alloc_rate=0.2, dispatch_rate=0.2)
+        args = dict(capacity=2, max_len=32, kv_layout="paged",
+                    prefill_chunk_tokens=4, page_size=4, decode_chunk=2,
+                    fault_plan=fp, retry_backoff_s=0.0, **extra)
+        args.update(kw)
+        eng = cls(m, p, **args)
+        hs = [eng.submit(q, n) for q, n in reqs]
+        eng.run_until_done()
+        st = eng.stats()
+        outs.append(([list(h.out_tokens) for h in hs], list(eng.grant_log),
+                     dict(fp.by_kind), st["rounds_retried"],
+                     st["finished"]))
+    assert outs[1] == outs[0]
+    assert outs[1][2].get("dispatch", 0) > 0 and outs[1][4] == 4
+
+
 @pytest.mark.parametrize("layout", ["paged", "slots"])
 @pytest.mark.parametrize("chunk", [None, 4], ids=["one-shot", "chunked"])
 def test_prefix_defaults_resolve_as_reference(models, layout, chunk):
@@ -210,13 +245,21 @@ def test_former_gaps_build_and_serve(models, kw):
 
 
 def test_deadlines_and_cancel_raise(models):
+    """Deadlines and cancellation raised "not ported yet" in earlier
+    slices; now they work (held to the JAX engine in
+    tests/test_torch_lifecycle.py): a deadline already past expires the
+    request in the queue, an unknown rid is refused, and a queued
+    request is torn down at once."""
     _, _, tm, tp = models
     eng = SlotServeEngine(tm, tp, capacity=2, max_len=16,
                           prefill_chunk_tokens=4, device="cpu")
-    with pytest.raises(ValueError, match="deadlines is not ported yet"):
-        eng.submit(np.arange(3), 2, deadline_step=5)
-    with pytest.raises(ValueError, match="cancellation is not ported yet"):
-        eng.cancel(0)
+    late = eng.submit(np.arange(3), 2, deadline_step=-1)
+    assert not eng.cancel(12345)
+    queued = eng.submit(np.arange(3), 2)
+    assert eng.cancel(queued.rid) and queued.state.value == "cancelled"
+    eng.run_until_done()
+    assert late.state.value == "expired" and eng.grant_log == []
+    assert eng.stats()["expired"] == 1 and eng.stats()["cancelled"] == 1
 
 
 def test_engine_defaults_to_the_card(models):

@@ -46,8 +46,27 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
     for mod in ("repro_torch.serve.kv_slots", "repro_torch.serve.engine",
                 "repro_torch.serve.prefix_cache",
                 "repro_torch.serve.scheduler", "repro_torch.launch.serve",
+                "repro_torch.serve.faults", "repro_torch.serve.frontend",
+                "repro_torch.serve.fuzz",
                 "repro_torch.models.attention", "repro_torch.models.lm"):
         assert mod in names.split(), mod
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.serve.faults", "repro_torch.serve.frontend",
+    "repro_torch.serve.fuzz", "repro_torch.launch.serve"])
+def test_lifecycle_modules_load_neither_jax_nor_repro(module):
+    """Each module of the request lifecycle, imported alone in a fresh
+    interpreter, leaves ``jax`` and ``repro`` out of ``sys.modules``."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
 
 
 def _imports(path):

@@ -2,7 +2,7 @@
 """Drive the PyTorch port's main paths on one CUDA card: serving, and
 the sync library's plans with the paper's kernel benchmarks.
 
-    python3 chip_smoke.py            # phases 1-4 and 6-9, one card
+    python3 chip_smoke.py            # phases 1-4 and 6-10, one card
 
 Run from the root of a checkout; it needs ``src/repro_torch`` beside it
 and a CUDA card, and exits non-zero without printing a result otherwise.
@@ -25,7 +25,11 @@ JSON line with its seconds:
              global flags at 32769 and 65536, with poll budgets 0, 1
              and 1024; every membench cell at 132 and 1056 steps; the
              past-limit kernels timed beside the fast path at the old
-             limit); the lock, the
+             limit; paged decode at head dim 256 in the f32 grid, and
+             at gemma3-1b's shape — one kv head, G 4, window 512, a row
+             past the window — in bf16 and f32, with and without the
+             window, on phase 10's table and on a 4 x 4096 row); the
+             lock, the
              admission kernel and the barrier also print their whole
              planning call, the launch floor and a latency estimate
              beside the byte bound
@@ -41,7 +45,10 @@ JSON line with its seconds:
              counts identical; then three lifecycle runs (cancels in
              every state with step deadlines, chaos, a poisoned rid):
              streams, states, grant logs, acquires, the lifecycle counts
-             and the faults by kind identical
+             and the faults by kind identical; then the reduced
+             configs of phase 10's five families, and gemma3-1b with
+             two leftover layers, on the main path: streams, grant logs
+             and acquires identical
   4 serve    full-width qwen3-14b (40 layers, bf16) serving 8 requests
              through the paged, chunked-prefill, bucketed engine (prefix
              sharing on, as the reference resolves it; random prompts
@@ -85,10 +92,21 @@ JSON line with its seconds:
              SLO, deadlines, a bounded intake, executor deaths): every
              client accounted for, each stream equal to its request's
              tokens; launch counters over the phase, and per run
+ 10 families  the other attention-only decoders at full width, bf16,
+             random weights from seed 0, one at a time after phase 4's
+             weights are freed, through the phase-4 engine: olmoe-1b-7b
+             (MoE, 16 layers) on phase 4's traffic; gemma3-1b (26 layers,
+             hd 256, window 512 on its local layers) on the same with two
+             prompts of 640 and 1000 tokens; minitron-4b (32 layers),
+             and phi3.5-moe-42b-a6.6b and qwen1.5-110b cut to 4 layers
+             (whole, they outgrow the card), on 4 requests each:
+             tokens/s, acquires per token, every request finished, no
+             page leaked, the decode kernel in every layer of every
+             decode step and the admission kernel
 
 Then one JSON line naming every kernel with its launches (from phase 4
 for the serving kernels, from phase 6 for the others; each path's,
-phases 8 and 9 among them, in ``launches_by_path``), times and bound,
+phases 8, 9 and 10 among them, in ``launches_by_path``), times and bound,
 and last the device line. Every failed check exits non-zero before the
 last line.
 """
@@ -121,6 +139,15 @@ REDUCED = dict(capacity=3, requests=6, prompt_min=5, prompt_max=24,
 # of ``follow`` new user tokens.
 PREFIX = dict(requests=8, preamble=128, suffix_min=16, suffix_max=64,
               new_tokens=16, follow=16, gap=3, repeat=(4, 5))
+# Phase 10's models (arch, layers kept or None for full depth, requests)
+# on phase 4's settings; gemma3-1b also serves two prompts past its
+# local layers' window (FAMILY_LONG_PROMPTS, numpy seed 5). phi3.5-moe
+# (84 GB in bf16) and qwen1.5-110b (222 GB) keep 4 of their layers to fit
+# the card's 80 GB.
+FAMILIES = (("olmoe-1b-7b", None, 8), ("gemma3-1b", None, 8),
+            ("minitron-4b", None, 4), ("phi3.5-moe-42b-a6.6b", 4, 4),
+            ("qwen1.5-110b", 4, 4))
+FAMILY_LONG_PROMPTS = (640, 1000)
 # The paper's Section-3 cell size: 8 CTAs per SM of 132, 1000 accesses.
 MEMBENCH_CELL = dict(n_steps=1056, repeats=1000)
 
@@ -381,10 +408,10 @@ def within_bf16(got, want, tol):
     return float(excess.max()) <= 0.0, float((got - want).abs().max())
 
 
-def sdpa_ms(q, k, v, pages, lens):
+def sdpa_ms(q, k, v, pages, lens, window=None):
     """Library yardstick, never called by the port: SDPA over the
-    gathered, head-expanded view with the length mask (the gather is not
-    timed)."""
+    gathered, head-expanded view with the length mask (and the window's,
+    when given; the gather is not timed)."""
     import torch
     import torch.nn.functional as F
     b, kvh, g, hd = q.shape
@@ -394,41 +421,55 @@ def sdpa_ms(q, k, v, pages, lens):
     ke = kb.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
     ve = vb.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
     qh = q.reshape(b, kvh * g, 1, hd)
-    mask = (torch.arange(ke.shape[2], device="cuda")[None]
-            < lens.long()[:, None])[:, None, None, :]
+    pos = torch.arange(ke.shape[2], device="cuda")[None]
+    mask = pos < lens.long()[:, None]
+    if window is not None:
+        mask &= pos >= lens.long()[:, None] - window
+    mask = mask[:, None, None, :]
     return cuda_ms(lambda: F.scaled_dot_product_attention(
         qh, ke, ve, attn_mask=mask))
 
 
-def time_decode(q, k, v, pages, lens):
-    """Call, kernel, plain and SDPA times and the bound at one shape."""
+def decode_plan(q, pages):
+    """(splits, pages_per_split, CTAs per SM) the wrapper plans."""
     from repro_torch.kernels import paged_attention as pa
-    nbytes, ops = decode_work(q, k, pages, lens)
+    ctas = pa.ctas_per_sm(q.shape[3], q.dtype)
+    return (*pa.plan_splits(pages.shape[1], q.shape[0], q.shape[1],
+                            pa.sm_count(q.device), ctas), ctas)
+
+
+def time_decode(q, k, v, pages, lens, window=None):
+    """Call, kernel, plain and SDPA times and the bound at one shape (the
+    bound counts only live positions: inside the length, the window and
+    allocated pages)."""
+    from repro_torch.kernels import paged_attention as pa
+    nbytes, ops = decode_work(q, k, pages, lens, window)
     bms, bby = bound_ms(nbytes, ops, "bfloat16")
-    splits, pps = pa.plan_splits(pages.shape[1], q.shape[0], q.shape[1],
-                                 pa.sm_count(q.device))
-    return {"ms": cuda_ms(lambda: pa.paged_decode(q, k, v, pages, lens)),
+    splits, pps, ctas = decode_plan(q, pages)
+    return {"ms": cuda_ms(lambda: pa.paged_decode(q, k, v, pages, lens,
+                                                  window=window)),
             "kernel_ms": kernel_ms(lambda: pa.paged_decode(
-                q, k, v, pages, lens), DECODE_KERNELS),
+                q, k, v, pages, lens, window=window), DECODE_KERNELS),
             "plain_ms": cuda_ms(lambda: pa.paged_decode_plain(
-                q, k, v, pages, lens)),
-            "library_ms": sdpa_ms(q, k, v, pages, lens),
+                q, k, v, pages, lens, window=window)),
+            "library_ms": sdpa_ms(q, k, v, pages, lens, window),
             "bound_ms": bms, "bound_by": bby, "bytes": nbytes, "ops": ops,
-            "splits": splits, "pages_per_split": pps}
+            "splits": splits, "pages_per_split": pps, "ctas_per_sm": ctas}
 
 
 def check_paged_decode():
     """The decode kernel against its plain version: the reference's grid
-    in f32 (page sizes, GQA shapes, windows, dead and empty rows) at hd 32
-    and 128; a table with negative entries and sentinels; the kernel's
-    split model; the main path's shape in f32 and bf16; the long-context
-    row in bf16; two launches bit-equal at both timed shapes."""
+    in f32 (page sizes, GQA shapes, windows, dead and empty rows) at hd
+    32, 128 and 256; a table with negative entries and sentinels; the
+    kernel's split model; the main path's shape in f32 and bf16; the
+    long-context row in bf16; two launches bit-equal at both timed
+    shapes; then gemma3-1b's hd-256 shapes (``check_decode_hd256``)."""
     import torch
     from repro_torch.kernels import paged_attention as pa
     tol_f32, tol_bf16 = 1e-5, 2e-3
     worst = 0.0
     n_cases = 0
-    for hd in (32, 128):
+    for hd in (32, 128, 256):
         for ps in (1, 4, 16):
             for kv, g in ((8, 1), (2, 4), (1, 8), (8, 5)):
                 for window in (None, 5):
@@ -475,8 +516,7 @@ def check_paged_decode():
     err_full32 = float((got - want).abs().max())
     check(err_full32 <= tol_f32,
           f"paged_decode full width f32: {err_full32} > {tol_f32}")
-    splits, pps = pa.plan_splits(p_cap, full["b"], full["kv"],
-                                 pa.sm_count(q.device))
+    splits, pps, _ = decode_plan(q, pages)
     model = pa.paged_decode_split_model(q, k, v, pages, lens,
                                         pages_per_split=pps)
     err_model = float((got - model).abs().max())
@@ -519,7 +559,101 @@ def check_paged_decode():
             "bit_equal_launches": True,
             "shape": dict(full), "dtype": "bfloat16", **main,
             "library": "F.scaled_dot_product_attention on the gathered view",
-            "long_context": long_row}
+            "long_context": long_row, "hd256": check_decode_hd256()}
+
+
+def gemma_cell():
+    """gemma3-1b's serving settings in phase 10 (phase 4's, with two
+    prompts past the 512-token window: the longest sets max_len)."""
+    return dict(SERVE, prompt_max=max(FAMILY_LONG_PROMPTS))
+
+
+def check_decode_hd256():
+    """gemma3-1b's decode shape (hd 256, one kv head, G 4, window 512 on
+    its local layers) on the card: bf16 at the shape phase 10's engine
+    gives the kernel (B 4, one row past the window, one empty) with and
+    without the window, held to the plain version and to the split
+    model, two launches bit-equal, timed; the long row (B 4 x 4096
+    positions) with and without the window, timed; f32 at both shapes
+    within 1e-5."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import paged_attention as pa
+    cfg = get_arch("gemma3-1b")
+    kv, g, hd = (cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+    tol_f32, tol_bf16, window = 1e-5, 2e-3, cfg.sliding_window
+    c = gemma_cell()
+    max_len = c["prompt_max"] + c["new_tokens"] + 1
+    num_pages = -(-c["capacity"] * max_len // c["page_size"])
+    p_cap = min(-(-2 * max_len // c["page_size"]), num_pages)
+    shape = dict(b=c["capacity"], kv=kv, g=g, hd=hd, ps=c["page_size"],
+                 num_pages=num_pages, p_cap=p_cap,
+                 max_len=c["prompt_max"] + c["new_tokens"])
+    res, errs = {"shape": dict(shape, window=window)}, {}
+
+    def held(q, k, v, pages, lens, w, what):
+        got = pa.paged_decode(q, k, v, pages, lens, window=w)
+        want = pa.paged_decode_plain(q, k, v, pages, lens, window=w)
+        torch.cuda.synchronize()
+        if q.dtype == torch.float32:
+            err = float((got - want).abs().max())
+            ok = err <= tol_f32
+        else:
+            ok, err = within_bf16(got, want, tol_bf16)
+            check(bits_equal(got, pa.paged_decode(q, k, v, pages, lens,
+                                                  window=w)),
+                  f"paged_decode hd 256 {what}: two launches differ")
+        check(ok, f"paged_decode hd 256 {what}: max abs err {err} beyond "
+              f"{tol_f32 if q.dtype == torch.float32 else tol_bf16}")
+        check(int(lens[1]) != 0 or bool((got[1] == 0).all()),
+              f"paged_decode hd 256 {what}: a length-0 row is not zeros")
+        errs[what] = err
+
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, pages, lens = decode_case(12, dtype=dtype, **shape)
+        lens[0] = c["prompt_max"]          # one row past the window
+        need = -(-c["prompt_max"] // c["page_size"])
+        pages[0, :need] = torch.randperm(
+            num_pages, generator=torch.Generator().manual_seed(12))[
+            :need].to(device="cuda", dtype=torch.int32)
+        name = "f32" if dtype == torch.float32 else "bf16"
+        for w in (window, None):
+            held(q, k, v, pages, lens, w, f"{name} window {w}")
+        if dtype == torch.bfloat16:
+            splits, pps, ctas = decode_plan(q, pages)
+            model = pa.paged_decode_split_model(
+                q, k, v, pages, lens, pages_per_split=pps, window=window)
+            ok, errs["bf16 split model"] = within_bf16(
+                pa.paged_decode(q, k, v, pages, lens, window=window), model,
+                tol_bf16)
+            check(ok, "paged_decode hd 256 vs its split model: "
+                  f"{errs['bf16 split model']}")
+            res.update(time_decode(q, k, v, pages, lens, window))
+            res["lens"] = lens.tolist()
+            res["no_window"] = time_decode(q, k, v, pages, lens)
+    # the long row: 4 rows x 4096 live positions
+    ps, per_row, b = 16, 256, 4
+    gen = torch.Generator(device="cpu").manual_seed(13)
+    pages = torch.randperm(b * per_row, generator=gen).to(
+        torch.int32).reshape(b, per_row).to("cuda")
+    lens = torch.full((b,), per_row * ps, dtype=torch.int32, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, _, _ = decode_case(13, b=b, kv=kv, g=g, hd=hd, ps=ps,
+                                    num_pages=b * per_row, p_cap=1,
+                                    dtype=dtype)
+        name = "f32" if dtype == torch.float32 else "bf16"
+        for w in (window, None):
+            held(q, k, v, pages, lens, w, f"{name} long window {w}")
+        if dtype == torch.bfloat16:
+            res["long_window"] = time_decode(q, k, v, pages, lens, window)
+            res["long"] = time_decode(q, k, v, pages, lens)
+    res["long_shape"] = {"b": b, "kv": kv, "g": g, "hd": hd, "ps": ps,
+                         "num_pages": b * per_row, "p_cap": per_row,
+                         "len": per_row * ps}
+    res["max_abs_err"] = errs
+    res["tol"] = {"f32": tol_f32, "bf16": f"{tol_bf16} + 1 bf16 ulp"}
+    return res
 
 
 def chain_ms(n_steps, cycles_per_step, clock_mhz):
@@ -1177,6 +1311,7 @@ def phase_parity(out):
     res.update(lifecycle_parity(model, {"cuda": params_gpu,
                                         "cpu": params_cpu},
                                 c, cfg.vocab_size))
+    res.update(family_parity(c))
     legacy = {}
     for dev, params in (("cuda", params_gpu), ("cpu", params_cpu)):
         eng = ServeEngine(model, params,
@@ -1188,6 +1323,48 @@ def phase_parity(out):
           "reduced parity legacy: tokens differ between cuda and cpu")
     res["legacy_2_requests"] = {"streams_identical": True}
     return {"requests": c["requests"], "configs": res}
+
+
+def reduced_families():
+    """Phase 3's reduced configs of phase 10's families, and gemma3-1b
+    with two leftover layers after its one period (8 layers): name ->
+    config."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    cfgs = {name: get_arch(name).reduced() for name, _, _ in FAMILIES}
+    cfgs["gemma3-1b-leftover"] = dataclasses.replace(
+        cfgs["gemma3-1b"], num_layers=8)
+    return cfgs
+
+
+def family_parity(c):
+    """Each reduced family on the main path (paged, chunked, fused,
+    bucketed, sharing as resolved) on cuda and on cpu from the same
+    weights and requests: streams, grant logs and acquires identical."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+    res = {}
+    for name, cfg in reduced_families().items():
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(0), "cpu")
+        prompts = make_requests(1, c, cfg.vocab_size)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            eng = make_engine(model, params if dev == "cpu" else tree_map(
+                lambda t: t.to(dev), params), c, dev)
+            reqs, _ = serve(eng, prompts, c["new_tokens"])
+            check_drained(eng, reqs, c["new_tokens"], cfg.vocab_size,
+                          f"reduced {name} {dev}")
+            runs[dev] = ({r.rid: r.out_tokens for r in reqs},
+                         eng.grant_log, eng.stats()["lock_acquires"])
+        check(runs["cuda"] == runs["cpu"],
+              f"reduced parity {name}: streams, grant logs or acquires "
+              f"differ between cuda and cpu")
+        res[f"family_{name}"] = {"streams_identical": True,
+                                 "grant_log": runs["cuda"][1],
+                                 "lock_acquires": runs["cuda"][2]}
+    return res
 
 
 def phase_serve(out):
@@ -1935,6 +2112,119 @@ def phase_lifecycle(out):
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
+def family_prompts(vocab, n, long=()):
+    """Phase 4's prompt draw for ``n`` requests (numpy seed 2), with
+    prompts 2 and 5 replaced by prompts of the lengths ``long`` (numpy
+    seed 5). Returns (prompts, settings with max_len to fit them)."""
+    import numpy as np
+    c = dict(SERVE, requests=n)
+    prompts = make_requests(2, c, vocab)
+    rng = np.random.default_rng(5)
+    for i, n_tok in zip((2, 5), long):
+        prompts[i] = rng.integers(0, vocab, size=n_tok, dtype=np.int32)
+    return prompts, dict(c, prompt_max=max(len(p) for p in prompts))
+
+
+def serve_family(arch, layers, n_requests):
+    """One model of phase 10 at full width (bf16, random weights on the
+    card from seed 0), depth cut to ``layers`` when given, through the
+    phase-4 engine; the launch counters are zeroed just before the run
+    and read just after."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.paged_attention import PAGED_DECODE
+    from repro_torch.kernels.semaphore import SEMAPHORE_ADMISSION
+    from repro_torch.models import build_model
+    from repro_torch.models.common import count_params
+    cfg = full = get_arch(arch)
+    if layers:
+        cfg = dataclasses.replace(full, num_layers=layers)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    long = FAMILY_LONG_PROMPTS if cfg.sliding_window else ()
+    prompts, c = family_prompts(cfg.vocab_size, n_requests, long)
+    eng = make_engine(model, params, c, "cuda")
+    PAGED_DECODE.launches = 0
+    SEMAPHORE_ADMISSION.launches = 0
+    reqs, dt = serve(eng, prompts, c["new_tokens"])
+    launches = {"paged_decode": PAGED_DECODE.launches,
+                "semaphore_admission": SEMAPHORE_ADMISSION.launches}
+    check_drained(eng, reqs, c["new_tokens"], cfg.vocab_size, arch)
+    check(launches["paged_decode"] > 0 and launches["paged_decode"]
+          == cfg.num_layers * eng.decode_steps_run,
+          f"{arch}: paged_decode launched {launches['paged_decode']} times, "
+          f"want {cfg.num_layers} x {eng.decode_steps_run} decode steps")
+    check(launches["semaphore_admission"] > 0,
+          f"{arch}: semaphore_admission never launched")
+    check(eng.grant_log == list(range(n_requests)),
+          f"{arch}: grant log {eng.grant_log}")
+    cache = model.init_cache(2, c["page_size"], "cuda")
+    cache["len"] = torch.zeros(1, dtype=torch.int32, device="cuda")
+    cache["pages"] = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
+    logits, _ = model.decode_step(
+        params, cache, torch.tensor([1], dtype=torch.int32, device="cuda"),
+        attn_impl="fused")
+    check(tuple(logits.shape) == (1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"{arch}: decode logits not finite")
+    st = eng.stats()
+    window = cfg.sliding_window
+    rec = {"arch": arch, "layers": cfg.num_layers,
+           "depth_cut": None if not layers else (
+               f"{full.num_layers} -> {layers} layers: "
+               f"{2 * count_params(build_model(full).spec_tree()) / 1e9:.0f}"
+               f" GB of bf16 weights whole, over the card's 80 GB"),
+           "params": count_params(model.spec_tree()), "init_s": init_s,
+           "requests": n_requests,
+           "prompt_lens": [len(p) for p in prompts],
+           "rows_past_window": (None if not window else sum(
+               len(p) + c["new_tokens"] > window for p in prompts)),
+           "wall_s": dt, "tokens": st["tokens"],
+           "tok_per_s": st["tokens"] / dt, "rounds": eng.step_clock,
+           "decode_steps": eng.decode_steps_run,
+           "prefill_chunks": st["prefill_chunks"],
+           "lock_acquires": st["lock_acquires"],
+           "lock_acquires_per_token": st["lock_acquires_per_token"],
+           "all_finished": True, "pages_leaked": 0, "launches": launches,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    return rec, launches
+
+
+def phase_families(out):
+    """The other attention-only decoders at full width (FAMILIES), one
+    model on the card at a time: phase 4's qwen3-14b weights are freed
+    first and each model before the next. Per model: tokens/s, acquires
+    per token, every request finished, no page leaked, and launch
+    counters showing the decode kernel in every layer of every decode
+    step and the admission kernel."""
+    import gc
+    import torch
+    out.pop("serve_weights", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    before_gb = torch.cuda.memory_allocated() / 2 ** 30
+    check(before_gb < 1.0, f"phase 4's weights still hold {before_gb:.1f} "
+          f"GB of the card")
+    models, total = {}, {}
+    for arch, layers, n in FAMILIES:
+        torch.cuda.reset_peak_memory_stats()
+        rec, launches = serve_family(arch, layers, n)
+        models[arch] = rec
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches_families"] = total
+    return {"allocated_before_gb": before_gb, "settings": SERVE,
+            "long_prompts": FAMILY_LONG_PROMPTS, "models": models,
+            "launches": total}
+
+
 def phase_profile(out):
     """Where the time goes at full width (run on request: ``--phases
     1,5``): the phase-4 workload; after ``warm_rounds``, ``rounds``
@@ -2180,16 +2470,18 @@ def kernels_line(out):
                              ("serve_slots", "launches_slots"),
                              ("prefix", "launches_prefix"),
                              ("lifecycle", "launches_lifecycle"),
+                             ("families", "launches_families"),
                              ("primitives", "launches_primitives"))
                          if key in out},
                      **{key: k[key] for key in (
-                         "call_ms", "launch_floor_ms",
+                         "hd256", "call_ms", "launch_floor_ms",
                          "past_register_capacity", "past_staging",
                          "past_shared_memory") if key in k}})
     return {"kernels": rows, "launches": out.get("launches", {}),
             "launches_slots": out.get("launches_slots", {}),
             "launches_prefix": out.get("launches_prefix", {}),
             "launches_lifecycle": out.get("launches_lifecycle", {}),
+            "launches_families": out.get("launches_families", {}),
             "launches_primitives": out.get("launches_primitives", {}),
             "card": out.get("card")}
 
@@ -2198,14 +2490,14 @@ PHASES = {1: ("card", phase_card), 2: ("kernels", phase_kernels),
           3: ("parity", phase_parity), 4: ("serve", phase_serve),
           5: ("profile", phase_profile), 6: ("primitives", phase_primitives),
           7: ("slots", phase_slots), 8: ("prefix", phase_prefix),
-          9: ("lifecycle", phase_lifecycle)}
+          9: ("lifecycle", phase_lifecycle), 10: ("families", phase_families)}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,6,7,8,9",
+    ap.add_argument("--phases", default="1,2,3,4,6,7,8,9,10",
                     help="comma-separated phases to run (default: 1-4 and "
-                         "6-9; 5, the profile, runs only when named)")
+                         "6-10; 5, the profile, runs only when named)")
     ap.add_argument("--profile-layout", default="paged",
                     choices=("paged", "slots"),
                     help="the engine phase 5 profiles: the main path "

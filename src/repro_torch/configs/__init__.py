@@ -1,18 +1,23 @@
-"""Architecture registry. Only ``qwen3-14b`` is ported so far; the other
-architectures of the reference are named so that asking for one says so."""
+"""Architecture registry: the attention-only decoders of the reference
+(dense and MoE). The mamba, encoder-decoder and stub-frontend
+architectures are named so that asking for one says so."""
 from __future__ import annotations
 
 from typing import Dict
 
-from . import qwen3_14b
-from .base import ArchConfig, MoEConfig, SSMConfig  # noqa: F401
+from . import (gemma3_1b, minitron_4b, olmoe_1b_7b, phi3_5_moe,
+               qwen1_5_110b, qwen3_14b)
+from .base import ArchConfig, MoEConfig, ShapeConfig, SSMConfig  # noqa: F401
+from .shapes import ALL_SHAPES, shapes_for, skipped_shapes_for  # noqa: F401
 
-ARCHS: Dict[str, ArchConfig] = {qwen3_14b.CONFIG.name: qwen3_14b.CONFIG}
+ARCHS: Dict[str, ArchConfig] = {
+    m.CONFIG.name: m.CONFIG
+    for m in (gemma3_1b, minitron_4b, qwen3_14b, qwen1_5_110b, phi3_5_moe,
+              olmoe_1b_7b)}
 
 #: architectures the JAX package has and this package does not yet
-NOT_PORTED = ("internvl2-76b", "gemma3-1b", "minitron-4b", "qwen1.5-110b",
-              "phi3.5-moe-42b-a6.6b", "olmoe-1b-7b", "whisper-small",
-              "jamba-1.5-large-398b", "falcon-mamba-7b")
+NOT_PORTED = ("internvl2-76b", "whisper-small", "jamba-1.5-large-398b",
+              "falcon-mamba-7b")
 
 
 def get_arch(name: str) -> ArchConfig:

@@ -79,6 +79,19 @@ class ArchConfig:
     def is_encdec(self) -> bool:
         return self.encoder_layers > 0
 
+    @property
+    def attention_free(self) -> bool:
+        return all(k == "mamba" for k in self.layer_pattern)
+
+    @property
+    def subquadratic(self) -> bool:
+        """Eligible for long_500k (SSM / hybrid / mostly-local attention)."""
+        kinds = set(self.layer_pattern)
+        if "mamba" in kinds:
+            return True
+        n_local = sum(1 for k in self.layer_pattern if k == "local")
+        return n_local >= 0.8 * len(self.layer_pattern)
+
     def periods(self) -> Tuple[int, Tuple[str, ...], Tuple[str, ...]]:
         """(n_periods, pattern, leftover_kinds) — the reference stacks
         each pattern position over the periods."""
@@ -86,6 +99,16 @@ class ArchConfig:
         n = self.num_layers // p
         leftover = self.num_layers - n * p
         return n, self.layer_pattern, self.layer_pattern[:leftover]
+
+    def layer_kinds(self) -> Tuple[str, ...]:
+        n, pat, left = self.periods()
+        return pat * n + left
+
+    def moe_on_layer(self, idx: int) -> bool:
+        if self.moe is None:
+            return False
+        n = self.moe.every_n_layers
+        return idx % n == n - 1
 
     def reduced(self) -> "ArchConfig":
         """Same-family tiny config for CPU tests."""
@@ -117,3 +140,15 @@ class ArchConfig:
             ssm=dataclasses.replace(self.ssm, dt_rank=8) if self.ssm else None,
             param_dtype="float32",
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str            # 'train' | 'prefill' | 'decode'
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch

@@ -40,6 +40,14 @@
 //     accumulator fragments: two shuffles per max and per sum for all
 //     heads at once. P enters PV as bf16 hi + lo halves (16 bits of p,
 //     fp32 accumulation). wgmma needs 64-row tiles: 92 % padding at G = 5.
+//     Only rows 0-7 of each accumulator are kept in registers: rows 8-15
+//     are zero in and dropped out of every mma, so hd 256 holds 64
+//     accumulator floats a thread, not 128.
+//   * the ring's depth follows the tile: 3 stages while a stage (K + V of
+//     16 positions) is at most 8 KB, 2 up to 16 KB, else 1 (no overlap).
+//     bf16 hd 256 runs 2 stages of 16 KB a warp, 128 KB a CTA: one CTA per
+//     SM, which the wrapper's split plan counts with; fp32 hd 256 runs one
+//     stage of 32 KB a warp, also 128 KB.
 //   * fp32 on the FMA pipes: scores with a shuffle sum across the lanes
 //     of a position, one shuffle tree per query head for the softmax, PV
 //     with the lanes across hd.
@@ -74,7 +82,8 @@ struct Cfg {
   static constexpr int LPR = HD / PE;           // lanes per row (PV)
   static constexpr int RPI = 32 / LPR;          // rows per PV step
   static constexpr int TILE_BYTES = kTile * HD * EL;   // K or V of a tile
-  static constexpr int NS = 2 * TILE_BYTES <= 8192 ? 3 : 2;  // ring depth
+  static constexpr int NS =                                 // ring depth
+      2 * TILE_BYTES <= 8192 ? 3 : 2 * TILE_BYTES <= 16384 ? 2 : 1;
   static constexpr int RING = kWarps * NS * 2 * TILE_BYTES;
   static constexpr int SCORES = kWarps * 2 * kTile * GM * 4;
   static constexpr int WARP_PARTS = kWarps * (GM * HD + 2 * GM) * 4;
@@ -109,33 +118,45 @@ __host__ __device__ inline int smem_bytes(int pps, int splits) {
 }
 
 // n elements of T at p (n * sizeof(T) in {2, 4, 8, 16} bytes, aligned to
-// that size), widened to fp32. A bf16 is the high half of an fp32.
+// that size, or a multiple of 16 bytes aligned to 16), widened to fp32. A
+// bf16 is the high half of an fp32.
 template <typename T, int N>
 __device__ __forceinline__ void load_f32(const T* p, float (&o)[N]) {
   constexpr int B = N * int(sizeof(T));
-  unsigned u[4];
-  constexpr int W = B >= 4 ? B / 4 : 1;
-  if constexpr (B == 16) {
-    uint4 w = *reinterpret_cast<const uint4*>(p);
-    u[0] = w.x; u[1] = w.y; u[2] = w.z; u[3] = w.w;
-  } else if constexpr (B == 8) {
-    uint2 w = *reinterpret_cast<const uint2*>(p);
-    u[0] = w.x; u[1] = w.y;
-  } else if constexpr (B == 4) {
-    u[0] = *reinterpret_cast<const unsigned*>(p);
-  } else {
-    u[0] = *reinterpret_cast<const unsigned short*>(p);
-  }
-  if constexpr (sizeof(T) == 4) {
+  if constexpr (B > 16) {
+    constexpr int H = 16 / int(sizeof(T));
 #pragma unroll
-    for (int i = 0; i < W; ++i) o[i] = __uint_as_float(u[i]);
-  } else if constexpr (B == 2) {
-    o[0] = __uint_as_float(u[0] << 16);
-  } else {
+    for (int c = 0; c < N / H; ++c) {
+      float t[H];
+      load_f32<T, H>(p + c * H, t);
 #pragma unroll
-    for (int i = 0; i < W; ++i) {
-      o[2 * i] = __uint_as_float(u[i] << 16);
-      o[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+      for (int i = 0; i < H; ++i) o[c * H + i] = t[i];
+    }
+  } else {
+    unsigned u[4];
+    constexpr int W = B >= 4 ? B / 4 : 1;
+    if constexpr (B == 16) {
+      uint4 w = *reinterpret_cast<const uint4*>(p);
+      u[0] = w.x; u[1] = w.y; u[2] = w.z; u[3] = w.w;
+    } else if constexpr (B == 8) {
+      uint2 w = *reinterpret_cast<const uint2*>(p);
+      u[0] = w.x; u[1] = w.y;
+    } else if constexpr (B == 4) {
+      u[0] = *reinterpret_cast<const unsigned*>(p);
+    } else {
+      u[0] = *reinterpret_cast<const unsigned short*>(p);
+    }
+    if constexpr (sizeof(T) == 4) {
+#pragma unroll
+      for (int i = 0; i < W; ++i) o[i] = __uint_as_float(u[i]);
+    } else if constexpr (B == 2) {
+      o[0] = __uint_as_float(u[0] << 16);
+    } else {
+#pragma unroll
+      for (int i = 0; i < W; ++i) {
+        o[2 * i] = __uint_as_float(u[i] << 16);
+        o[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+      }
     }
   }
 }
@@ -198,16 +219,18 @@ __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p,
         : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
 }
 
-// d += a * b for one m16n8k16 bf16 tile with fp32 accumulation; the a
-// rows 8-15 (registers 1 and 3) are zero here.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], unsigned a0,
+// d += a * b for one m16n8k16 bf16 tile with fp32 accumulation, rows 0-7
+// of d only: the a rows 8-15 (registers 1 and 3) are zero here, so rows
+// 8-15 of d go in as zeros and come out as zeros, into scratch that dies.
+__device__ __forceinline__ void mma_bf16(float (&d)[2], unsigned a0,
                                          unsigned a2, unsigned b0,
                                          unsigned b1) {
+  float z2, z3;
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%10,%10};\n"
+      : "+f"(d[0]), "+f"(d[1]), "=f"(z2), "=f"(z3)
+      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1), "f"(0.f));
 }
 
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
@@ -218,20 +241,20 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 // One 16-position tile on the tensor cores (bf16). Lane t holds query
 // head g = t / 4 (heads >= G have zero queries and are never stored):
 // scores S[g][p] for p = 2(t % 4) + {0, 1} and 8 + 2(t % 4) + {0, 1},
-// and acc[j] = O[g][8j + 2(t % 4) + {0, 1}] in registers 0-1 (2-3 hold
-// the zero rows 8-15). The softmax needs two shuffles per reduction for
+// and acc[j] = O[g][8j + 2(t % 4) + {0, 1}]. The softmax needs two
+// shuffles per reduction for
 // all heads at once. P enters PV as bf16 hi + lo halves, so the product
 // keeps 16 bits of p, not 8.
 template <int HD>
 __device__ __forceinline__ void tile_mma(const __nv_bfloat16* ks,
                                          const __nv_bfloat16* vs,
                                          const unsigned (&qa)[HD / 16][2],
-                                         float (&acc)[HD / 8][4], float& m,
+                                         float (&acc)[HD / 8][2], float& m,
                                          float& l, int lane, unsigned valid,
                                          float scale) {
   using C = Cfg<__nv_bfloat16, HD, 8>;
   const int mat = lane >> 3, mr = lane & 7;
-  float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+  float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
   {
     // matrix mat: positions 8 (mat / 2) + mr, chunk 2 kk + mat % 2
     const int r = (mat >> 1) * 8 + mr;
@@ -478,7 +501,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
 
     // this warp's online-softmax state, in the path's own layout
     float m_w[C::MMA ? 1 : GM], l_w[C::MMA ? 1 : GM];
-    float acc[C::MMA ? HD / 8 : GM][C::MMA ? 4 : C::PE];
+    float acc[C::MMA ? HD / 8 : GM][C::MMA ? 2 : C::PE];
 #pragma unroll
     for (int g = 0; g < (C::MMA ? 1 : GM); ++g) {
       m_w[g] = kNegInf;
@@ -487,7 +510,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
 #pragma unroll
     for (int i = 0; i < (C::MMA ? HD / 8 : GM); ++i)
 #pragma unroll
-      for (int e = 0; e < (C::MMA ? 4 : C::PE); ++e) acc[i][e] = 0.f;
+      for (int e = 0; e < (C::MMA ? 2 : C::PE); ++e) acc[i][e] = 0.f;
 
     // query operand: bf16 pairs as mma A fragments (rows = query heads,
     // rows 8-15 zero), or pre-scaled fp32 elements for the fp32 path
@@ -649,10 +672,11 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     lsum_s[g] = lsum;
   }
   __syncthreads();
-  // every split wrote its acc (zeros when empty): start the loads of 8
-  // splits at once for all of this thread's elements, then add in order
+  // every split wrote its acc (zeros when empty): start the loads of SB
+  // splits at once for all of this thread's elements (64 loads in flight
+  // at most: 8 splits at hd 128, 4 at hd 256), then add in order
   constexpr int E = (GM * HD + kThreads - 1) / kThreads;
-  constexpr int SB = 8;
+  constexpr int SB = E >= 8 ? 64 / E : 8;
   const float* accb = ws_acc + (size_t)bh * splits * G * HD;
   float a[E];
 #pragma unroll
@@ -748,6 +772,7 @@ int by_head_dim(int head_dim, int gm, const void* q, const void* k,
     case 16: return by_groups<T, 16>(PD_ARGS);
     case 32: return by_groups<T, 32>(PD_ARGS);
     case 128: return by_groups<T, 128>(PD_ARGS);
+    case 256: return by_groups<T, 256>(PD_ARGS);
   }
 #undef PD_ARGS
   return (int)cudaErrorInvalidValue;
@@ -756,7 +781,7 @@ int by_head_dim(int head_dim, int gm, const void* q, const void* k,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, both arenas and out share it).
-// head_dim in {16, 32, 128}; groups <= 8 (fp32 rounds it up to 1, 4 or 8
+// head_dim in {16, 32, 128, 256}; groups <= 8 (fp32 rounds it up to 1, 4 or 8
 // for its register arrays). window < 0 means no sliding window. The grid is
 // (kv_heads, splits, batch) with splits = ceil(table_width /
 // pages_per_split). ws holds batch * kv_heads * splits * groups * (2 +

@@ -11,7 +11,8 @@ what bounds it on the H100 and how it is laid out.
   shape the kernel does not take, raises.
 * :func:`plan_splits` / :func:`split_ranges` — how the kernel cuts each
   (row, kv head) over its table entries, chosen on the host from the
-  shapes and the SM count alone (never the lengths).
+  shapes, the SM count and the CTAs per SM of the variant
+  (:func:`ctas_per_sm`) alone (never the lengths).
 * :func:`paged_decode_plain` — gather-then-attend in torch, in the
   kernel's grouping: sentinel *pages* are masked as the kernel masks
   them and rows with no live lane are exact zeros (the counterpart of
@@ -42,24 +43,44 @@ PAGED_DECODE = CudaKernel(
      _I, ctypes.c_float, _I, _P])
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 128)
+HEAD_DIMS = (16, 32, 128, 256)
 MAX_GROUPS = 8
 # CTAs per SM the split aims at (two fit at hd 128 in bf16: ~100 KB of
 # shared memory each), and the most splits one (row, kv head) may take.
 CTAS_PER_SM = 2
 MAX_SPLITS = 256
+# Shared memory of one H100 SM, and what the runtime reserves per CTA.
+SMEM_PER_SM = 228 * 1024
+SMEM_RESERVED_PER_CTA = 1024
+
+
+def ctas_per_sm(head_dim: int, dtype: torch.dtype) -> int:
+    """CTAs of the kernel's (dtype, head_dim) variant that one SM holds by
+    shared memory, at most CTAS_PER_SM. Mirrors ``Cfg`` in the source: a
+    ring of 4 warps x NS stages x K and V of a 16-position tile, NS 3
+    while a stage is at most 8 KB, 2 up to 16 KB, else 1; 4 KB of
+    scores; the per-warp partials when they are larger. bf16 hd 128
+    gets 2, bf16 and fp32 at hd 256 (and fp32 at hd 128) get 1."""
+    el = 4 if dtype == torch.float32 else 2
+    stage = 2 * 16 * head_dim * el
+    ns = 3 if stage <= 8192 else 2 if stage <= 16384 else 1
+    ring = 4 * ns * stage
+    warp_parts = 4 * (MAX_GROUPS * head_dim + 2 * MAX_GROUPS) * 4
+    per_cta = (max(ring, warp_parts) + 4 * 2 * 16 * MAX_GROUPS * 4
+               + SMEM_RESERVED_PER_CTA)
+    return max(1, min(CTAS_PER_SM, SMEM_PER_SM // per_cta))
 
 
 def plan_splits(table_width: int, batch: int, kv_heads: int,
-                sm_count: int):
+                sm_count: int, ctas_per_sm: int = CTAS_PER_SM):
     """``(splits, pages_per_split)`` for a ``[batch, table_width]`` block
-    table: as many splits of each (row, kv head) as fill CTAS_PER_SM
+    table: as many splits of each (row, kv head) as fill ``ctas_per_sm``
     CTAs on every SM in one wave, never more than the table has entries.
     It reads no length, so the host never waits on the card."""
     if table_width <= 0:
         return 1, 1
     rows = max(1, batch * kv_heads)
-    splits = max(1, (CTAS_PER_SM * sm_count) // rows)
+    splits = max(1, (ctas_per_sm * sm_count) // rows)
     splits = min(splits, table_width, MAX_SPLITS)
     pps = -(-table_width // splits)
     return -(-table_width // pps), pps
@@ -147,7 +168,8 @@ def paged_decode(q: torch.Tensor, k_arena: torch.Tensor,
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        splits, pps = plan_splits(p_cap, b, kv, sm_count(q.device))
+        splits, pps = plan_splits(p_cap, b, kv, sm_count(q.device),
+                                  ctas_per_sm(hd, q.dtype))
         ws = torch.empty(b * kv * splits * g * (2 + hd) if splits > 1 else 1,
                          dtype=torch.float32, device=q.device)
         counters = _counters(q.device, stream, b * kv)

@@ -279,7 +279,10 @@ def make_prompts(args, vocab: int) -> np.ndarray:
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help="an architecture of repro_torch.configs.ARCHS: "
+                         "qwen3-14b, olmoe-1b-7b, phi3.5-moe-42b-a6.6b, "
+                         "gemma3-1b, minitron-4b, qwen1.5-110b")
     ap.add_argument("--smoke", action="store_true",
                     help="serve the reduced config")
     ap.add_argument("--requests", type=int, default=32)

@@ -1,6 +1,6 @@
-"""Transformer block wiring: pre-norm attention + pre-norm dense FFN, over
-the full sequence, the contiguous slot cache or the paged arena
-(counterpart of ``repro.models.blocks``). Mamba and MoE blocks are not
+"""Transformer block wiring: pre-norm attention + pre-norm FFN (dense or
+MoE), over the full sequence, the contiguous slot cache or the paged
+arena (counterpart of ``repro.models.blocks``). Mamba blocks are not
 ported yet."""
 
 from __future__ import annotations
@@ -10,44 +10,50 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 
 from . import attention as attn
+from . import moe as moe_mod
 from .layers import mlp, mlp_spec, rmsnorm, rmsnorm_spec
 
 
-def _require_ported(cfg, kind: str, use_moe: bool) -> None:
+def _require_ported(kind: str) -> None:
     if kind == "mamba":
         raise ValueError("mamba blocks are not ported yet")
-    if use_moe:
-        raise ValueError("MoE blocks are not ported yet")
 
 
 def block_spec(cfg, kind: str, use_moe: bool, dtype):
-    _require_ported(cfg, kind, use_moe)
+    _require_ported(kind)
     return {"ln1": rmsnorm_spec(cfg.d_model),
             "mixer": attn.attention_spec(cfg, dtype),
             "ln2": rmsnorm_spec(cfg.d_model),
-            "ffn": mlp_spec(cfg.d_model, cfg.d_ff, cfg.activation, dtype)}
+            "ffn": (moe_mod.moe_spec(cfg, dtype) if use_moe else
+                    mlp_spec(cfg.d_model, cfg.d_ff, cfg.activation, dtype))}
 
 
 def window_for(cfg, kind: str) -> Optional[int]:
     return cfg.sliding_window if kind == "local" else None
 
 
-def _ffn(p, x, cfg):
-    return x + mlp(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps),
-                   cfg.activation)
+def _ffn(p, x, cfg, use_moe: bool) -> Tuple[torch.Tensor, Dict]:
+    """Pre-norm FFN sublayer with its residual; the MoE aux (``{}`` for a
+    dense FFN)."""
+    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    if use_moe:
+        y, aux = moe_mod.moe_ffn(p["ffn"], h, cfg)
+        return x + y, aux
+    return x + mlp(p["ffn"], h, cfg.activation), {}
 
 
 def block_forward(p, x: torch.Tensor, cfg, kind: str, use_moe: bool,
                   positions: torch.Tensor) -> Tuple[torch.Tensor, Dict, Dict]:
     """Full-sequence pass (causal). x [B,S,D]; ``positions`` [B,S].
-    Returns (x, cache entry ``{"k", "v"}`` [B,S,KV,hd], aux {})."""
-    _require_ported(cfg, kind, use_moe)
+    Returns (x, cache entry ``{"k", "v"}`` [B,S,KV,hd], the MoE aux)."""
+    _require_ported(kind)
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     q, k, v = attn.qkv_project(p["mixer"], cfg, h, positions)
     y = attn.full_attention(p["mixer"], cfg, q, k, v, causal=True,
                             window=window_for(cfg, kind))
     x = x + attn.attention_out(p["mixer"], y, cfg.num_heads)
-    return _ffn(p, x, cfg), {"k": k, "v": v}, {}
+    x, aux = _ffn(p, x, cfg, use_moe)
+    return x, {"k": k, "v": v}, aux
 
 
 WritePlan = Union[attn.PageWritePlan, attn.RowWritePlan]
@@ -75,7 +81,7 @@ def block_decode(p, x: torch.Tensor, cache: Dict, cache_len: torch.Tensor,
     :func:`attention.page_write_plan`, or for [B] lengths on the
     contiguous cache :func:`attention.row_write_plan`) may be shared by
     every layer."""
-    _require_ported(cfg, kind, use_moe)
+    _require_ported(kind)
     cl = torch.as_tensor(cache_len, device=x.device)
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     positions = (cl[:, None] if cl.dim() == 1
@@ -105,7 +111,7 @@ def block_decode(p, x: torch.Tensor, cache: Dict, cache_len: torch.Tensor,
             p["mixer"], cfg, q, cache["k"], cache["v"], cl + 1,
             window=window_for(cfg, kind))
     x = x + attn.attention_out(p["mixer"], y, cfg.num_heads)
-    return _ffn(p, x, cfg), cache
+    return _ffn(p, x, cfg, use_moe)[0], cache
 
 
 def block_prefill_chunk(p, x: torch.Tensor, cache: Dict, cfg, kind: str,
@@ -121,7 +127,7 @@ def block_prefill_chunk(p, x: torch.Tensor, cache: Dict, cfg, kind: str,
     either layout (``pages`` None: the contiguous cache). K/V are
     written before attention reads the cache (scatter-then-attend), so
     the result does not depend on how the prompt was chunked."""
-    _require_ported(cfg, kind, use_moe)
+    _require_ported(kind)
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     q, k, v = attn.qkv_project(p["mixer"], cfg, h, positions)
     window = window_for(cfg, kind)
@@ -134,7 +140,7 @@ def block_prefill_chunk(p, x: torch.Tensor, cache: Dict, cfg, kind: str,
             p["mixer"], cfg, q, cache["k"], cache["v"], positions,
             window=window)
         x = x + attn.attention_out(p["mixer"], y, cfg.num_heads)
-        return _ffn(p, x, cfg), cache
+        return _ffn(p, x, cfg, use_moe)[0], cache
     if write_plan is None:
         write_plan = attn.page_write_plan(
             pages, write_pos, cache["k"].shape[0], cache["k"].shape[1])
@@ -144,7 +150,7 @@ def block_prefill_chunk(p, x: torch.Tensor, cache: Dict, cfg, kind: str,
         p["mixer"], cfg, q, cache["k"], cache["v"], pages, positions,
         window=window)
     x = x + attn.attention_out(p["mixer"], y, cfg.num_heads)
-    return _ffn(p, x, cfg), cache
+    return _ffn(p, x, cfg, use_moe)[0], cache
 
 
 def period_layout(cfg):

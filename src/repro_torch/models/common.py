@@ -59,6 +59,11 @@ def stack_specs(tree, n: int):
                     tree)
 
 
+def count_params(spec_tree) -> int:
+    """Number of parameters of a spec tree (nothing is allocated)."""
+    return sum(math.prod(s.shape) for _, s in tree_leaves(spec_tree))
+
+
 def init_params(spec_tree, generator: torch.Generator,
                 device) -> Tree:
     """Materialize a spec tree on ``device``. Normal leaves are drawn in

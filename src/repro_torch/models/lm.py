@@ -126,42 +126,56 @@ class LM:
     def forward(self, params: Tree, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, Dict]:
         """Full-sequence forward over ``batch["tokens"]`` [B,S]. Returns
-        (logits [B,S,V], aux {})."""
-        x, _ = self._backbone(params, batch["tokens"], want_cache=False)
-        return self._unembed(params, x), {}
+        (logits [B,S,V], aux): for an MoE model ``moe_aux_loss`` and
+        ``moe_drop_frac`` summed over every MoE layer (per period, then
+        over periods, then the leftover layers, the reference's order);
+        ``{}`` otherwise."""
+        x, _, aux = self._backbone(params, batch["tokens"], want_cache=False)
+        return self._unembed(params, x), aux
 
     def _backbone(self, params: Tree, tokens: torch.Tensor, *,
-                  want_cache: bool) -> Tuple[torch.Tensor, Optional[Tree]]:
+                  want_cache: bool
+                  ) -> Tuple[torch.Tensor, Optional[Tree], Dict]:
         """Embed, every layer in depth order (causal, positions 0..S-1),
-        final norm. With ``want_cache`` also the per-layer K/V
-        ``[n_periods, B, S, KV, hd]`` (leftover layers unstacked)."""
+        final norm. Returns (x, cache, the summed MoE aux). With
+        ``want_cache`` the cache is the per-layer K/V ``[n_periods, B, S,
+        KV, hd]`` (leftover layers unstacked), else None."""
         cfg = self.cfg
         x = self._embed(params, tokens)
         b, s = tokens.shape
         positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+        keys = ("moe_aux_loss", "moe_drop_frac") if cfg.moe else ()
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux_acc = {k: zero for k in keys}
         periods = {f"layer_{j}": [] for j in range(len(self.layout))}
         for i in range(self.n_periods):
+            aux_sum = {k: zero for k in keys}
             for j, (kind, use_moe) in enumerate(self.layout):
                 name = f"layer_{j}"
                 p = tree_map(lambda a: a[i], params["periods"][name])
-                x, c, _ = blocks.block_forward(p, x, cfg, kind, use_moe,
-                                               positions)
+                x, c, aux = blocks.block_forward(p, x, cfg, kind, use_moe,
+                                                 positions)
+                aux_sum = {k: aux_sum[k] + aux[k] if k in aux else aux_sum[k]
+                           for k in keys}
                 if want_cache:
                     periods[name].append(c)
+            aux_acc = {k: aux_acc[k] + aux_sum[k] for k in keys}
         leftover = {}
         for j in range(len(self.leftover)):
             kind, use_moe = self.layout[j]
             name = f"layer_{j}"
-            x, c, _ = blocks.block_forward(params["leftover"][name], x, cfg,
-                                           kind, use_moe, positions)
+            x, c, aux = blocks.block_forward(params["leftover"][name], x,
+                                             cfg, kind, use_moe, positions)
+            aux_acc = {k: aux_acc[k] + aux[k] if k in aux else aux_acc[k]
+                       for k in keys}
             leftover[name] = c
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
         if not want_cache:
-            return x, None
+            return x, None, aux_acc
         stacked = {name: {n: torch.stack([c[n] for c in cs])
                           for n in ("k", "v")}
                    for name, cs in periods.items() if cs}
-        return x, {"periods": stacked, "leftover": leftover}
+        return x, {"periods": stacked, "leftover": leftover}, aux_acc
 
     # ------------------------------------------------------------- serving
     def prefill(self, params: Tree, batch: Dict[str, torch.Tensor], *,
@@ -177,7 +191,7 @@ class LM:
         that vector, so decode attends only to real tokens. K/V are
         zero-padded on the time axis to ``max_len`` (default S)."""
         tokens = batch["tokens"]
-        x, cache = self._backbone(params, tokens, want_cache=True)
+        x, cache, _ = self._backbone(params, tokens, want_cache=True)
         s = tokens.shape[1]
         if length is None:
             logits = self._unembed(params, x[:, -1:, :])[:, 0]

@@ -48,7 +48,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
                 "repro_torch.serve.scheduler", "repro_torch.launch.serve",
                 "repro_torch.serve.faults", "repro_torch.serve.frontend",
                 "repro_torch.serve.fuzz",
-                "repro_torch.models.attention", "repro_torch.models.lm"):
+                "repro_torch.models.attention", "repro_torch.models.lm",
+                "repro_torch.models.moe", "repro_torch.models.model_zoo"):
         assert mod in names.split(), mod
 
 

@@ -90,7 +90,7 @@ def test_unported_families_raise():
         build_model(dataclasses.replace(cfg, layer_pattern=("mamba",)
                                         )).spec_tree()
     with pytest.raises(KeyError, match="not ported yet"):
-        get_arch("gemma3-1b")
+        get_arch("falcon-mamba-7b")
 
 
 def _caches(jm, tm, pages, ps, num_pages):

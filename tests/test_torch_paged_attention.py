@@ -124,6 +124,20 @@ def test_adapter_rejects_padded_heads():
                                torch.ones(1, dtype=torch.int32), 4)
 
 
+@pytest.mark.parametrize("window", [None, 5, 12])
+def test_plain_hd256_matches_pallas(window):
+    """gemma3-1b's grouping at head dim 256 (one kv head, G 4): windows
+    shorter and longer than the rows, dead and length-0 rows (exact
+    zeros), sentinel tails — the plain version against the Pallas kernel
+    and the oracle."""
+    kern, ref, got = _both(_case(25, b=4, kv=1, g=4, hd=256, ps=4,
+                                 num_pages=24, p_cap=6, dead_row=True),
+                           window)
+    np.testing.assert_allclose(got, kern, atol=TOL, rtol=0)
+    np.testing.assert_allclose(got, ref, atol=TOL, rtol=0)
+    assert np.all(got[1] == 0.0) and np.all(got[3] == 0.0)
+
+
 def test_wrapper_has_no_fallback_off_the_cpu():
     """A tensor that is neither on the CPU nor on a card is refused, not
     quietly computed by the plain version."""

@@ -21,6 +21,8 @@ import torch  # noqa: E402
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import test_torch_attention as ta_test  # noqa: E402
+import test_torch_families as fam_test  # noqa: E402
+import test_torch_moe as moe_test  # noqa: E402
 import test_torch_paged_attention as pa_test  # noqa: E402
 from repro.configs import get_arch as jget_arch  # noqa: E402
 from repro.kernels.membench.ops import make_buffer as jmake_buffer  # noqa: E402,E501
@@ -33,6 +35,7 @@ from repro.sync import SyncLibrary as JSyncLibrary  # noqa: E402
 from repro.models import attention as ja  # noqa: E402
 from repro.models import build_model as jbuild  # noqa: E402
 from repro.models import layers as jl  # noqa: E402
+from repro.models import moe as jmoe  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.kernels import membench as tmb  # noqa: E402
 from repro_torch.kernels import paged_attention as tpa  # noqa: E402
@@ -42,6 +45,7 @@ from repro_torch.kernels import xf_barrier as txb  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import layers as tl  # noqa: E402
+from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models.bridge import params_from_numpy  # noqa: E402
 from repro_torch.sync import SyncLibrary  # noqa: E402
 
@@ -90,6 +94,22 @@ def main():
     rows["paged_decode plain vs Pallas interpret (grid)"] = worst
     rows["paged_decode split model vs Pallas interpret (grid, 1-5 "
          "splits)"] = worst_split
+    worst = worst_split = 0.0
+    for window in (None, 5, 12):
+        arrays = pa_test._case(25, b=4, kv=1, g=4, hd=256, ps=4,
+                               num_pages=24, p_cap=6, dead_row=True)
+        want = fused_paged_decode(*[jnp.asarray(a) for a in arrays],
+                                  window=window, interpret=True)
+        t = [torch.tensor(a) for a in arrays]
+        worst = max(worst, err(want, tpa.paged_decode(*t, window=window)))
+        for pps in (6, 3, 2, 1):
+            got = tpa.paged_decode_split_model(*t, pages_per_split=pps,
+                                               window=window)
+            worst_split = max(worst_split, err(want, got))
+    rows["paged_decode plain vs Pallas interpret (hd 256, KV 1, G 4, "
+         "windows)"] = worst
+    rows["paged_decode split model vs Pallas interpret (hd 256, 1-6 "
+         "splits)"] = worst_split
 
     jm = jbuild(jget_arch("qwen3-14b").reduced())
     jp = jm.init(jax.random.PRNGKey(0))
@@ -127,11 +147,84 @@ def main():
     pre_rows, pre_streams = prefix_rows(jm, jp, tm, tp)
     rows.update(pre_rows)
     streams.update(pre_streams)
+    rows.update(moe_rows())
+    fam_rows, fam_streams = family_rows()
+    rows.update(fam_rows)
+    streams.update(fam_streams)
     for name, e in rows.items():
         print(json.dumps({"function": name, "max_abs_err": e}))
     print(json.dumps({"function": "LM greedy tokens", "identical": same}))
     for name, same in streams.items():
         print(json.dumps({"function": name, "identical": same}))
+
+
+def moe_rows():
+    """``route`` and the two MoE dispatches at E 64 / k 8, d 128, with
+    drops and forced ties (tests/test_torch_moe.py's inputs)."""
+    rows = {}
+    e, k = 64, 8
+    x, r = moe_test._x(e + k, True), moe_test._router(e + k, e, True)
+    cap = moe_test._cap(e, k, True)
+    jd, jc, ja_ = jmoe.route(jnp.asarray(x), jnp.asarray(r), e, k, cap)
+    td, tc, ta_ = tmoe.route(torch.tensor(x), torch.tensor(r), e, k, cap)
+    rows["moe.route dispatch / combine / aux (E 64, k 8, drops, ties)"] = \
+        max(err(jd, td), err(jc, tc),
+            *(abs(float(ja_[n]) - float(ta_[n])) for n in ja_))
+    jcfg, tcfg = moe_test._cfgs(e, k)
+    p = moe_test._params(e + k, e)
+    jp = {n: jnp.asarray(a) for n, a in p.items()}
+    tp = {n: torch.tensor(a) for n, a in p.items()}
+    x = moe_test._x(3 * e + k)
+    j_ein = jmoe.moe_ffn_einsum(jp, jnp.asarray(x), jcfg)[0]
+    j_gat = jmoe.moe_ffn_gather(jp, jnp.asarray(x), jcfg)[0]
+    t_ein = tmoe.moe_ffn_einsum(tp, torch.tensor(x), tcfg)[0]
+    t_gat = tmoe.moe_ffn_gather(tp, torch.tensor(x), tcfg)[0]
+    rows["moe_ffn_einsum vs JAX (E 64, k 8)"] = err(j_ein, t_ein)
+    rows["moe_ffn_gather vs JAX (E 64, k 8)"] = err(j_gat, t_gat)
+    rows["moe_ffn_gather vs moe_ffn_einsum (port)"] = err(t_ein, t_gat)
+    return rows
+
+
+def family_rows():
+    """Each reduced family of tests/test_torch_families.py: ``forward``
+    logits (absolute, and over the reference's largest |logit|) and MoE
+    aux; four greedy fused ``decode_step`` calls on a paged cache after
+    a prefill chunk of 8."""
+    rows, streams = {}, {}
+    for name in fam_test.FAMILIES:
+        jm, jp, tm, tp = fam_test.models(name)
+        tok = fam_test._tokens(1, 2, 20)
+        jl_, ja_ = jm.forward(jp, {"tokens": jnp.asarray(tok)})
+        tl_, ta_ = tm.forward(tp, {"tokens": torch.tensor(tok)})
+        e = err(jl_, tl_)
+        rows[f"{name} LM.forward logits (abs; rel. to max |logit|)"] = [
+            e, e / float(np.abs(np.asarray(jl_)).max())]
+        if ja_:
+            rows[f"{name} LM.forward MoE aux"] = max(
+                abs(float(ja_[n]) - float(ta_[n])) for n in ja_)
+        jc, tc = jm.init_cache(16, 4), tm.init_cache(16, 4, "cpu")
+        tbl = np.array([[3, 1, 4, 9, 12, 16], [0, 2, 5, 7, 16, 16]],
+                       np.int32)
+        jc["pages"], tc["pages"] = jnp.asarray(tbl), torch.tensor(tbl)
+        tok = fam_test._tokens(3, 2, 8)
+        qp = np.tile(np.arange(8, dtype=np.int32), (2, 1))
+        jlog, jc = jm.prefill_chunk(jp, jc, *map(jnp.asarray, (tok, qp, qp)))
+        tlog, tc = tm.prefill_chunk(tp, tc, *map(torch.tensor, (tok, qp, qp)))
+        jc["len"] = jnp.asarray([8, 8], jnp.int32)
+        tc["len"] = torch.tensor([8, 8], dtype=torch.int32)
+        nxt = np.asarray(jnp.argmax(jlog[:, -1], -1)).astype(np.int32)
+        worst, same = 0.0, True
+        for _ in range(4):
+            jlog, jc = jm.decode_step(jp, jc, jnp.asarray(nxt),
+                                      attn_impl="fused")
+            tlog, tc = tm.decode_step(tp, tc, torch.tensor(nxt),
+                                      attn_impl="fused")
+            worst = max(worst, err(jlog, tlog))
+            nxt = np.asarray(jnp.argmax(jlog, -1)).astype(np.int32)
+            same &= bool(np.array_equal(nxt, tlog.argmax(-1).numpy()))
+        rows[f"{name} LM.decode_step logits (paged fused, 4 steps)"] = worst
+        streams[f"{name} greedy decode tokens"] = same
+    return rows, streams
 
 
 def slots_rows(jm, jp, tm, tp):

@@ -2,7 +2,7 @@
 """Drive the PyTorch port's main paths on one CUDA card: serving, and
 the sync library's plans with the paper's kernel benchmarks.
 
-    python3 chip_smoke.py            # phases 1-4 and 6-10, one card
+    python3 chip_smoke.py            # phases 1-4 and 6-11, one card
 
 Run from the root of a checkout; it needs ``src/repro_torch`` beside it
 and a CUDA card, and exits non-zero without printing a result otherwise.
@@ -103,10 +103,30 @@ JSON line with its seconds:
              tokens/s, acquires per token, every request finished, no
              page leaked, the decode kernel in every layer of every
              decode step and the admission kernel
-
+ 11 servebench  the serving benchmark's twin
+             (``repro_torch.benchmarks.servebench``): (a) at the
+             reference CI's command line on reduced qwen3-14b, float32,
+             TF32 off, on cuda and on cpu from the same weights — every
+             gate of counts and streams (``ci_gates``) passes on cuda,
+             every number no clock measured is identical, the
+             watchdog's trips equal the stuck holders on both, and the
+             one wall-clock gate is reported; (b) at full width (weights
+             from seed 0), 16 requests, prompt 128, capacity 4, page 16,
+             decode chunk 4, through the benchmark's row functions:
+             legacy on 2 requests, paged lazy and eager (the reference's
+             defaults: gather, one-shot), gather once and the fused row
+             (chunked, bucketed: the main path, the only row through the
+             decode kernel) three times, interleaved chunked, the open
+             loop three times: medians and spreads of the fused row's
+             tokens/s and waits and of TTFT, every request finished,
+             FIFO grants, no page leaked; launch counters over (b); the
+             host's state (live objects, eager launch and Python loop
+             times) before and after; (c) the host benchmark on the
+             card's host, beside its CPU model
 Then one JSON line naming every kernel with its launches (from phase 4
 for the serving kernels, from phase 6 for the others; each path's,
-phases 8, 9 and 10 among them, in ``launches_by_path``), times and bound,
+phases 8, 9, 10 and 11 among them, in ``launches_by_path``), times and
+bound,
 and last the device line. Every failed check exits non-zero before the
 last line.
 """
@@ -2225,6 +2245,307 @@ def phase_families(out):
             "launches": total}
 
 
+# ------------------------------------------------- phase 11: servebench
+#: the reference CI's servebench command line (``.github/workflows/ci.yml``)
+SERVEBENCH_CI = ["--smoke", "--kv-layout", "both", "--prefix-sharing",
+                 "both"]
+#: phase 11 (b): servebench's flags at full width. The phase runs the
+#: rows it keeps through the benchmark's row functions: legacy on two
+#: requests; paged lazy and eager (the reference's defaults: gather,
+#: one-shot); gather vs fused (chunked, bucketed: the main path's
+#: configuration, the only row through the decode kernel); interleaved
+#: chunked; the open loop. Cut to keep the phase near 4 minutes: slots
+#: (phase 7 serves the slot arena at full width), one-shot interleaved
+#: (its wall-clock gate is reported by part (a)) and the shared-prefix,
+#: cache and chaos traces (phases 8 and 9 serve them at full width).
+SERVEBENCH_FULL = ["--full-width", "--requests", "16", "--capacities", "4",
+                   "--prompt-len", "128", "--new-tokens", "16",
+                   "--page-size", "16", "--decode-chunk", "4"]
+#: runs of the fused row and of the open loop: medians and spreads
+SERVEBENCH_REPEATS = 3
+#: no report files: the phase's line carries the numbers
+NO_FILES = ["--out", "", "--cache-out", "", "--chaos-out", "",
+            "--frontend-out", ""]
+
+
+def first_difference(a, b, path=""):
+    """The first path at which two reports differ, or None."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        if set(a) != set(b):
+            return f"{path}: keys {sorted(set(a) ^ set(b))}"
+        for k in a:
+            d = first_difference(a[k], b[k], f"{path}/{k}")
+            if d:
+                return d
+        return None
+    return None if a == b else f"{path}: {a!r} vs {b!r}"
+
+
+def spread(values):
+    """min, median, max and (max - min) / median of repeated runs."""
+    import statistics
+    med = statistics.median(values)
+    return {"runs": values, "min": min(values), "median": med,
+            "max": max(values),
+            "spread": (max(values) - min(values)) / med if med else None}
+
+
+def servebench_reduced():
+    """Phase 11 (a): the twin's main at the reference CI's command line,
+    reduced qwen3-14b in float32 with TF32 off, on cuda and on cpu from
+    the same weights. Every count-and-stream gate passes on cuda; every
+    number a clock did not measure is identical between the devices, and
+    on each the watchdog trips once per stuck holder; the one wall-clock
+    gate is reported, with the step waits beside it."""
+    import torch
+    from repro_torch.benchmarks import servebench as sb
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = build_model(get_arch("qwen3-14b").reduced())
+    cpu = model.init(torch.Generator().manual_seed(0), "cpu")
+    rows, seconds = {}, {}
+    for dev, params in (("cuda", tree_map(lambda t: t.to("cuda"), cpu)),
+                        ("cpu", cpu)):
+        t0 = time.perf_counter()
+        rows[dev] = sb.main(SERVEBENCH_CI + ["--device", dev, *NO_FILES],
+                            model=model, params=params)
+        seconds[dev] = time.perf_counter() - t0
+    r = rows["cuda"]
+    failed = sb.ci_gates(r, r["prefix_cache"], r["frontend"], r["chaos"])
+    held = [f for f in failed if not f.startswith(sb.WALL_CLOCK_STEP)]
+    check(not held, f"servebench reduced on cuda: gates failed: {held}")
+    diff = first_difference(sb.untimed(rows["cuda"]),
+                            sb.untimed(rows["cpu"]))
+    check(diff is None, f"servebench reduced: cuda and cpu differ at {diff}")
+    # the watchdog's trips are a clock's count, left out above; on the
+    # card's host, with nothing else running, only stuck holders trip it
+    for dev, v in rows.items():
+        ch = v["chaos"]["chaos"]
+        stuck = ch["faults_by_kind"].get("stuck", 0)
+        check(stuck > 0 and ch["watchdog_trips"] == stuck,
+              f"servebench reduced on {dev}: {ch['watchdog_trips']} "
+              f"watchdog trips for {stuck} stuck holders")
+    ch, un = r["interleaved"]["chunked"], r["interleaved"]["unchunked"]
+    return {"seconds": seconds, "gates_failed": failed,
+            "wall_clock_gate": {
+                "p99_wait_s_drop_vs_unchunked":
+                    ch["p99_wait_s_drop_vs_unchunked"],
+                "holds": not any(f.startswith(sb.WALL_CLOCK_STEP)
+                                 for f in failed),
+                "p99_wait_s": [ch["p99_wait_s"], un["p99_wait_s"]],
+                "p99_wait_steps": [ch["p99_wait_steps"],
+                                   un["p99_wait_steps"]],
+                "cpu_p99_wait_s_drop": rows["cpu"]["interleaved"][
+                    "chunked"]["p99_wait_s_drop_vs_unchunked"]},
+            "tok_per_s": {dev: {"paged_K4": v["paged"]["4"]["tok_per_s"],
+                                "slots_K4": v["slots"]["4"]["tok_per_s"]}
+                          for dev, v in rows.items()},
+            "watchdog_trips": {dev: v["chaos"]["chaos"]["watchdog_trips"]
+                               for dev, v in rows.items()},
+            "untimed_identical": True}
+
+
+def check_full_row(row, what, tokens):
+    """A full-width closed-loop row: every request finished with its
+    tokens, FIFO grants, allocator acquires per token a finite positive
+    count (paged; the bench already drained the pool leak-free)."""
+    check(row["tokens"] == tokens,
+          f"{what}: {row['tokens']} tokens, want {tokens}")
+    check(row["fifo_ok"], f"{what}: FIFO grant order violated")
+    if "lock_acquires_per_token" in row:
+        lat = row["lock_acquires_per_token"]
+        check(0 < lat < float("inf"), f"{what}: acquires per token {lat}")
+
+
+def host_probe():
+    """The host's state at a timed region's edge: live Python objects
+    (what a garbage collection walks), microseconds per eager launch of
+    a tiny op on the card (host dispatch, which serving rounds are bound
+    by) and milliseconds per 10^6 turns of a Python loop."""
+    import gc
+    import torch
+    x = torch.zeros(16, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2000):
+        x.add_(1)
+    torch.cuda.synchronize()
+    launch_us = (time.perf_counter() - t0) / 2000 * 1e6
+    t0 = time.perf_counter()
+    acc = 0
+    for i in range(10 ** 6):
+        acc += i
+    return {"gc_objects": len(gc.get_objects()), "launch_us": launch_us,
+            "python_loop_ms": (time.perf_counter() - t0) * 1e3}
+
+
+def servebench_full(out):
+    """Phase 11 (b): servebench's rows at full width (bf16, weights drawn
+    on the card from seed 0) through its row functions on the parsed
+    SERVEBENCH_FULL: legacy on 2 requests, paged lazy and eager once,
+    gather once, the fused row SERVEBENCH_REPEATS times, interleaved
+    chunked once, the open loop SERVEBENCH_REPEATS times (its
+    closed-loop reference streams drawn once). Medians and spreads; the
+    launch counters of both serving kernels zeroed before and read after
+    all of it; the host's state before and after."""
+    import numpy as np
+    import torch
+    from repro_torch.benchmarks import servebench as sb
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.serve.scheduler import plan_admission
+    cfg = get_arch("qwen3-14b")
+    if "serve_weights" in out:
+        model, params = out["serve_weights"][:2]
+    else:
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                            "cuda")
+    args = sb.parser().parse_args(SERVEBENCH_FULL + ["--device", "cuda"])
+    k, n, new = max(args.capacities), args.requests, args.new_tokens
+    prompts, arrivals = sb.closed_loop_trace(
+        args.seed, n, args.prompt_len, cfg.vocab_size, args.capacities,
+        new, args.load)
+    run = dict(capacity=k, new_tokens=new, decode_chunk=args.decode_chunk,
+               seed=args.seed, kv_layout="paged", page_size=args.page_size,
+               device="cuda")
+    probe_before = host_probe()
+    counters = _counters()
+    for name in ("paged_decode", "semaphore_admission"):
+        counters[name].launches = 0
+    t0 = time.perf_counter()
+    legacy = sb.bench_legacy(model, params, prompts[:2], new_tokens=new,
+                             device="cuda")
+    check(legacy["tokens"] == 2 * new,
+          f"full width legacy: {legacy['tokens']} tokens")
+    plan = plan_admission(arrivals[k].astype(np.float32),
+                          np.full(n, float(new), np.float32), k,
+                          device="cuda")
+    paged, paged_streams = sb.bench_slot_engine(
+        model, params, prompts, arrivals[k], page_growth="lazy", **run)
+    eager, eager_streams = sb.bench_slot_engine(
+        model, params, prompts, arrivals[k], page_growth="eager", **run)
+    check_full_row(paged, "full width paged lazy", n * new)
+    check_full_row(eager, "full width paged eager", n * new)
+    gather, gather_streams = sb.fused_run(model, params, prompts, args,
+                                          "gather", device="cuda")
+    check_full_row(gather, "full width gather", n * new)
+    fused, fused_shares = [], []
+    for i in range(SERVEBENCH_REPEATS):
+        row, streams = sb.fused_run(model, params, prompts, args, "fused",
+                                    device="cuda")
+        check_full_row(row, f"full width fused run {i}", n * new)
+        fused.append(row)
+        fused_shares.append(sb.streams_match(streams, gather_streams,
+                                             exact=False))
+    trace = sb.interleaved_trace(args, cfg.vocab_size)
+    inter, _ = sb.interleaved_run(model, params, args, trace, "chunked",
+                                  device="cuda")
+    check_full_row(inter, "full width interleaved chunked",
+                   n * trace["new_tokens"])
+    rows_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    opens, closed = [], None
+    for _ in range(SERVEBENCH_REPEATS):
+        fe, closed = sb.open_loop_row(model, params, args, cfg.vocab_size,
+                                      closed_streams=closed, device="cuda",
+                                      exact=False)
+        opens.append(fe)
+    open_s = time.perf_counter() - t1
+    launches = {name: counters[name].launches
+                for name in ("paged_decode", "semaphore_admission")}
+    probe_after = host_probe()
+    check(launches["paged_decode"] > 0 and launches["semaphore_admission"]
+          > 0, f"servebench full width: launches {launches}")
+    # only the fused rows decode through the kernel: one launch per layer
+    # of each of their decode steps
+    check(launches["paged_decode"] % cfg.num_layers == 0,
+          f"servebench full width: {launches['paged_decode']} decode "
+          f"launches, not a multiple of {cfg.num_layers} layers")
+    for key in ("lock_acquires_per_token", "p50_wait_steps",
+                "p99_wait_steps", "decode_dispatches"):
+        check(len({r[key] for r in fused}) == 1,
+              f"full width fused repeats: {key} differs: "
+              f"{[r[key] for r in fused]}")
+    for i, fe in enumerate(opens):
+        accounted = (fe["finished"] + fe["cancelled"] + fe["expired"]
+                     + fe["shed"])
+        check(accounted == n and fe["leaked_pages"] == 0 and fe["fifo_ok"],
+              f"full width open loop run {i}: accounted {accounted} of {n},"
+              f" leaked {fe['leaked_pages']}, fifo {fe['fifo_ok']}")
+    out["launches_servebench"] = launches
+    first = fused[0]
+    return {
+        "settings": " ".join(SERVEBENCH_FULL), "rows_s": rows_s,
+        "open_loop_s": open_s, "launches": launches,
+        "host_probe": {"before": probe_before, "after": probe_after},
+        "legacy": legacy,
+        "fused_K4": {
+            "tok_per_s": spread([r["tok_per_s"] for r in fused]),
+            "p50_wait_s": spread([r["p50_wait_s"] for r in fused]),
+            "p99_wait_s": spread([r["p99_wait_s"] for r in fused]),
+            "p50_wait_steps": first["p50_wait_steps"],
+            "p99_wait_steps": first["p99_wait_steps"],
+            "lock_acquires_per_token": first["lock_acquires_per_token"],
+            "decode_dispatches": first["decode_dispatches"],
+            "dispatch_trace_keys": first["dispatch_trace_keys"],
+            "prefill_chunks": first["prefill_chunks"],
+            "tokens_match_gather": fused_shares},
+        "paged_K4": {
+            "tok_per_s": paged["tok_per_s"],
+            "p50_wait_s": paged["p50_wait_s"],
+            "p99_wait_s": paged["p99_wait_s"],
+            "p50_wait_steps": paged["p50_wait_steps"],
+            "p99_wait_steps": paged["p99_wait_steps"],
+            "plan_p50_wait_steps": plan.p50_wait,
+            "plan_p99_wait_steps": plan.p99_wait,
+            "lock_acquires_per_token": paged["lock_acquires_per_token"],
+            "lock_drop_vs_eager": (eager["lock_acquires_per_token"]
+                                   / paged["lock_acquires_per_token"]),
+            "decode_dispatches": paged["decode_dispatches"],
+            "dispatch_trace_keys": paged["dispatch_trace_keys"],
+            "eager_lazy_tokens_match": sb.streams_match(
+                paged_streams, eager_streams, exact=False)},
+        "open_loop": {
+            "ttft_p50_ms": spread([fe["ttft_p50_ms"] for fe in opens]),
+            "ttft_p99_ms": spread([fe["ttft_p99_ms"] for fe in opens]),
+            "tok_per_s": spread([fe["tok_per_s"] for fe in opens]),
+            "goodput_tok_per_s": spread([fe["goodput_tok_per_s"]
+                                         for fe in opens]),
+            "closed_loop_tok_per_s": opens[0]["closed_loop_tok_per_s"],
+            "cancelled": [fe["cancelled"] for fe in opens],
+            "survivor_token_share": [
+                fe["survivor_streams_match_closed_loop"] for fe in opens]},
+        "rows_tok_per_s": {
+            "paged_eager": eager["tok_per_s"],
+            "gather": gather["tok_per_s"],
+            "interleaved_chunked": inter["tok_per_s"]},
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def phase_servebench(out):
+    """The serving benchmark's twin on the card: (a) the reference CI's
+    gates on the reduced model, cuda against cpu; (b) full width, the
+    fused row (the main path's configuration) and the open loop
+    repeated; (c) the host benchmark on the card's
+    host, beside the host CPU's model. Prints each part's seconds."""
+    from repro_torch.benchmarks import hostbench
+    t0 = time.perf_counter()
+    reduced = servebench_reduced()
+    t1 = time.perf_counter()
+    full = servebench_full(out)
+    t2 = time.perf_counter()
+    host = hostbench.main()
+    t3 = time.perf_counter()
+    return {"card": out.get("card"), "host_cpu": hostbench.cpu_model(),
+            "part_seconds": {"reduced": t1 - t0, "full_width": t2 - t1,
+                             "hostbench": t3 - t2},
+            "reduced": reduced, "full_width": full, "hostbench": host}
+
+
 def phase_profile(out):
     """Where the time goes at full width (run on request: ``--phases
     1,5``): the phase-4 workload; after ``warm_rounds``, ``rounds``
@@ -2471,7 +2792,8 @@ def kernels_line(out):
                              ("prefix", "launches_prefix"),
                              ("lifecycle", "launches_lifecycle"),
                              ("families", "launches_families"),
-                             ("primitives", "launches_primitives"))
+                             ("primitives", "launches_primitives"),
+                             ("servebench", "launches_servebench"))
                          if key in out},
                      **{key: k[key] for key in (
                          "hd256", "call_ms", "launch_floor_ms",
@@ -2483,6 +2805,7 @@ def kernels_line(out):
             "launches_lifecycle": out.get("launches_lifecycle", {}),
             "launches_families": out.get("launches_families", {}),
             "launches_primitives": out.get("launches_primitives", {}),
+            "launches_servebench": out.get("launches_servebench", {}),
             "card": out.get("card")}
 
 
@@ -2490,14 +2813,15 @@ PHASES = {1: ("card", phase_card), 2: ("kernels", phase_kernels),
           3: ("parity", phase_parity), 4: ("serve", phase_serve),
           5: ("profile", phase_profile), 6: ("primitives", phase_primitives),
           7: ("slots", phase_slots), 8: ("prefix", phase_prefix),
-          9: ("lifecycle", phase_lifecycle), 10: ("families", phase_families)}
+          9: ("lifecycle", phase_lifecycle), 10: ("families", phase_families),
+          11: ("servebench", phase_servebench)}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,6,7,8,9,10",
+    ap.add_argument("--phases", default="1,2,3,4,6,7,8,9,10,11",
                     help="comma-separated phases to run (default: 1-4 and "
-                         "6-10; 5, the profile, runs only when named)")
+                         "6-11; 5, the profile, runs only when named)")
     ap.add_argument("--profile-layout", default="paged",
                     choices=("paged", "slots"),
                     help="the engine phase 5 profiles: the main path "

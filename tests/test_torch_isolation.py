@@ -49,7 +49,10 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
                 "repro_torch.serve.faults", "repro_torch.serve.frontend",
                 "repro_torch.serve.fuzz",
                 "repro_torch.models.attention", "repro_torch.models.lm",
-                "repro_torch.models.moe", "repro_torch.models.model_zoo"):
+                "repro_torch.models.moe", "repro_torch.models.model_zoo",
+                "repro_torch.benchmarks.servebench",
+                "repro_torch.benchmarks.hostbench",
+                "repro_torch.benchmarks.run"):
         assert mod in names.split(), mod
 
 
@@ -59,6 +62,23 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
 def test_lifecycle_modules_load_neither_jax_nor_repro(module):
     """Each module of the request lifecycle, imported alone in a fresh
     interpreter, leaves ``jax`` and ``repro`` out of ``sys.modules``."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.benchmarks.servebench", "repro_torch.benchmarks.hostbench",
+    "repro_torch.benchmarks.run"])
+def test_benchmark_modules_load_neither_jax_nor_repro(module):
+    """Each benchmark twin, imported alone in a fresh interpreter, leaves
+    ``jax`` and ``repro`` out of ``sys.modules``."""
     code = (
         "import importlib, sys\n"
         f"importlib.import_module({module!r})\n"
@@ -122,6 +142,13 @@ def test_serve_cli_paths_refuse_the_cpu_by_default(flags):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "qwen3-14b", "--smoke", "--requests", "1",
                     *flags])
+
+
+def test_servebench_refuses_the_cpu_by_default():
+    _no_card()
+    from repro_torch.benchmarks import servebench
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        servebench.main(["--smoke", "--requests", "1", "--out", ""])
 
 
 def test_slot_arena_refuses_the_cpu_by_default():

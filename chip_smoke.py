@@ -2,7 +2,7 @@
 """Drive the PyTorch port's main paths on one CUDA card: serving, and
 the sync library's plans with the paper's kernel benchmarks.
 
-    python3 chip_smoke.py            # phases 1-4 and 6-11, one card
+    python3 chip_smoke.py            # phases 1-4 and 6-12, one card
 
 Run from the root of a checkout; it needs ``src/repro_torch`` beside it
 and a CUDA card, and exits non-zero without printing a result otherwise.
@@ -28,8 +28,9 @@ JSON line with its seconds:
              limit; paged decode at head dim 256 in the f32 grid, and
              at gemma3-1b's shape — one kv head, G 4, window 512, a row
              past the window — in bf16 and f32, with and without the
-             window, on phase 10's table and on a 4 x 4096 row); the
-             lock, the
+             window, on phase 10's table and on a 4 x 4096 row; and at
+             jamba-1.5-large's shape — 8 kv heads, G 8, hd 128 — in
+             bf16 on phase 12's table); the lock, the
              admission kernel and the barrier also print their whole
              planning call, the launch floor and a latency estimate
              beside the byte bound
@@ -48,7 +49,15 @@ JSON line with its seconds:
              and the faults by kind identical; then the reduced
              configs of phase 10's five families, and gemma3-1b with
              two leftover layers, on the main path: streams, grant logs
-             and acquires identical
+             and acquires identical; then reduced falcon-mamba-7b,
+             jamba-1.5-large-398b (8 layers) and jamba at 4 layers on
+             the phase-4 engine's arguments and on the slot arena:
+             streams, grant logs, acquires and the resolved gates (the
+             reference's: eager, no chunking, no bucketing, no sharing)
+             identical, and the legacy engine on two requests; then
+             reduced qwen3-14b sampled (T 0.8, seed 0) twice on cuda
+             (streams identical) and under dispatch faults (streams
+             equal to the fault-free run, rounds retried)
   4 serve    full-width qwen3-14b (40 layers, bf16) serving 8 requests
              through the paged, chunked-prefill, bucketed engine (prefix
              sharing on, as the reference resolves it; random prompts
@@ -123,11 +132,24 @@ JSON line with its seconds:
              host's state (live objects, eager launch and Python loop
              times) before and after; (c) the host benchmark on the
              card's host, beside its CPU model
-Then one JSON line naming every kernel with its launches (from phase 4
-for the serving kernels, from phase 6 for the others; each path's,
-phases 8, 9, 10 and 11 among them, in ``launches_by_path``), times and
-bound,
-and last the device line. Every failed check exits non-zero before the
+ 12 ssm      the recurrent decoders at full width, bf16, random weights
+             from seed 0, one at a time after earlier weights are freed,
+             through the phase-4 engine's arguments (bucketed dispatch
+             ``auto``: ``on`` raises for a mamba layer): falcon-mamba-7b
+             (64 layers, not cut) on phase 4's 8 requests, then 4
+             requests sampled at T 0.8 twice on its weights (streams
+             identical) and 1e5 draws of the engine's sampler against the
+             softmax of one 65024-wide row; jamba-1.5-large-398b cut to
+             4 layers (attention + 3 mamba) on 4 requests: the gates the
+             reference resolves, every request finished, FIFO grants, no
+             page leaked, the decode kernel once per attention layer of
+             each decode step (never for falcon-mamba), the admission
+             kernel once per round with a queue; tokens/s, prefill ms
+             per token, ms per decode round, peak memory
+Then the run's total seconds, one JSON line naming every kernel with its
+launches (from phase 4 for the serving kernels, from phase 6 for the
+others; each path's, phases 8-12 among them, in ``launches_by_path``),
+times and bound, and last the device line. Every failed check exits non-zero before the
 last line.
 """
 
@@ -203,6 +225,12 @@ class SmokeFailure(RuntimeError):
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SmokeFailure(what)
+
+
+def attention_layers(cfg) -> int:
+    """Layers that launch the decode kernel each decode step (every layer
+    but a mamba one)."""
+    return sum(kind != "mamba" for kind in cfg.layer_kinds())
 
 
 def emit(obj) -> None:
@@ -579,7 +607,8 @@ def check_paged_decode():
             "bit_equal_launches": True,
             "shape": dict(full), "dtype": "bfloat16", **main,
             "library": "F.scaled_dot_product_attention on the gathered view",
-            "long_context": long_row, "hd256": check_decode_hd256()}
+            "long_context": long_row, "hd256": check_decode_hd256(),
+            "jamba": check_decode_jamba()}
 
 
 def gemma_cell():
@@ -674,6 +703,38 @@ def check_decode_hd256():
     res["max_abs_err"] = errs
     res["tol"] = {"f32": tol_f32, "bf16": f"{tol_bf16} + 1 bf16 ulp"}
     return res
+
+
+def check_decode_jamba():
+    """jamba-1.5-large-398b's attention layer at the shape phase 12's
+    engine gives the kernel (phase 4's settings: B 4, 8 kv heads, G 8,
+    hd 128, page 16) in bf16: held to the plain version within 2e-3 + 1
+    ulp, two launches bit-equal, timed beside its bound and SDPA."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import paged_attention as pa
+    cfg = get_arch("jamba-1.5-large-398b")
+    kv, g, hd = (cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+    tol_bf16 = 2e-3
+    c = SERVE
+    max_len = c["prompt_max"] + c["new_tokens"] + 1
+    num_pages = -(-c["capacity"] * max_len // c["page_size"])
+    p_cap = min(-(-2 * max_len // c["page_size"]), num_pages)
+    shape = dict(b=c["capacity"], kv=kv, g=g, hd=hd, ps=c["page_size"],
+                 num_pages=num_pages, p_cap=p_cap,
+                 max_len=c["prompt_max"] + c["new_tokens"])
+    q, k, v, pages, lens = decode_case(14, dtype=torch.bfloat16, **shape)
+    got = pa.paged_decode(q, k, v, pages, lens)
+    ok, err = within_bf16(got, pa.paged_decode_plain(q, k, v, pages, lens),
+                          tol_bf16)
+    check(ok, f"paged_decode jamba shape bf16: max abs err {err} beyond "
+          f"{tol_bf16} + 1 ulp")
+    check(bits_equal(got, pa.paged_decode(q, k, v, pages, lens)),
+          "paged_decode jamba shape: two launches differ")
+    return {"shape": shape, "dtype": "bfloat16", "max_abs_err": err,
+            "tol": f"{tol_bf16} + 1 bf16 ulp", "lens": lens.tolist(),
+            **time_decode(q, k, v, pages, lens)}
 
 
 def chain_ms(n_steps, cycles_per_step, clock_mhz):
@@ -1332,6 +1393,8 @@ def phase_parity(out):
                                         "cpu": params_cpu},
                                 c, cfg.vocab_size))
     res.update(family_parity(c))
+    res.update(ssm_parity(c))
+    res.update(sampling_parity(model, params_gpu, c, cfg.vocab_size))
     legacy = {}
     for dev, params in (("cuda", params_gpu), ("cpu", params_cpu)):
         eng = ServeEngine(model, params,
@@ -1387,6 +1450,132 @@ def family_parity(c):
     return res
 
 
+#: a recurrent model's engine: phase 4's arguments with bucketed dispatch
+#: ``auto`` (``"on"`` raises for a mamba layer, as in the reference)
+SSM_ENGINE = dict(bucketed_dispatch="auto")
+#: the reduced recurrent decoders of phase 3: falcon-mamba, jamba's one
+#: period (8 layers) and jamba at 4 layers (no whole period)
+SSM_ARCHS = ("falcon-mamba-7b", "jamba-1.5-large-398b")
+#: the gates every recurrent or sampling engine resolves, as the
+#: reference's: eager growth, no chunked prefill, no bucketing, no
+#: sharing, no cache
+RECURRENT_GATES = {"page_growth": "eager", "prefill_chunk": 0,
+                   "bucketed_dispatch": False, "prefix_sharing": False,
+                   "prefix_cache": False}
+SAMPLE_T = 0.8
+
+
+def engine_gates(eng):
+    """The settings an engine resolved from its arguments."""
+    return {"page_growth": eng.page_growth,
+            "prefill_chunk": eng.prefill_chunk,
+            "bucketed_dispatch": bool(eng.bucketed_dispatch),
+            "prefix_sharing": bool(eng.prefix_sharing),
+            "prefix_cache": eng.prefix_cache is not None}
+
+
+def reduced_ssm():
+    """name -> reduced config of each recurrent decoder of phase 3."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    cfgs = {name: get_arch(name).reduced() for name in SSM_ARCHS}
+    cfgs["jamba-1.5-large-398b-4"] = dataclasses.replace(
+        cfgs["jamba-1.5-large-398b"], num_layers=4)
+    return cfgs
+
+
+def ssm_parity(c):
+    """Each reduced recurrent decoder on the phase-4 engine's arguments
+    and on the slot arena, on cuda and on cpu from the same weights and
+    requests: streams, grant logs, acquires and the resolved gates
+    identical (the gates the reference's); the legacy engine on two
+    requests."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+    from repro_torch.serve.engine import ServeEngine
+    res = {}
+    for name, cfg in reduced_ssm().items():
+        model = build_model(cfg)
+        params = {"cpu": model.init(torch.Generator().manual_seed(0), "cpu")}
+        params["cuda"] = tree_map(lambda t: t.to("cuda"), params["cpu"])
+        prompts = make_requests(1, c, cfg.vocab_size)
+        for layout, kw in (("main", SSM_ENGINE), ("slots", SLOTS)):
+            runs = {}
+            for dev in ("cuda", "cpu"):
+                eng = make_engine(model, params[dev], c, dev, **kw)
+                reqs, _ = serve(eng, prompts, c["new_tokens"])
+                check_drained(eng, reqs, c["new_tokens"], cfg.vocab_size,
+                              f"reduced {name} {layout} {dev}")
+                runs[dev] = ({r.rid: r.out_tokens for r in reqs},
+                             eng.grant_log,
+                             eng.stats().get("lock_acquires"),
+                             engine_gates(eng))
+            check(runs["cuda"] == runs["cpu"],
+                  f"reduced parity {name} {layout}: streams, grant logs, "
+                  f"acquires or gates differ between cuda and cpu")
+            check(runs["cuda"][3] == RECURRENT_GATES,
+                  f"reduced {name} {layout}: resolved {runs['cuda'][3]}")
+            res[f"ssm_{name}_{layout}"] = {
+                "streams_identical": True, "grant_log": runs["cuda"][1],
+                "lock_acquires": runs["cuda"][2], "gates": runs["cuda"][3]}
+        legacy = {}
+        for dev in ("cuda", "cpu"):
+            eng = ServeEngine(model, params[dev],
+                              max_len=c["prompt_max"] + c["new_tokens"] + 1)
+            legacy[dev] = [eng.generate(
+                {"tokens": torch.tensor(p[None], device=dev)},
+                c["new_tokens"]).tokens.cpu().tolist() for p in prompts[:2]]
+        check(legacy["cuda"] == legacy["cpu"],
+              f"reduced parity {name} legacy: tokens differ between cuda "
+              f"and cpu")
+        res[f"ssm_{name}_legacy_2_requests"] = {"streams_identical": True}
+    return res
+
+
+def sampled_run(model, params, c, prompts, device, n_tokens, fault_plan=None,
+                what="sampled"):
+    """The phase-4 engine's arguments at temperature SAMPLE_T, seed 0:
+    the gates it resolved, every request finished, no page leaked; with
+    a fault plan its failed rounds are retried (never quarantined).
+    Returns (streams, stats)."""
+    eng = make_engine(model, params, c, device, temperature=SAMPLE_T, seed=0,
+                      fault_plan=fault_plan, retry_backoff_s=0.0,
+                      quarantine_after=1000, **SSM_ENGINE)
+    check(engine_gates(eng) == RECURRENT_GATES,
+          f"{what}: resolved {engine_gates(eng)}")
+    reqs, _ = serve(eng, prompts, n_tokens)
+    check_drained(eng, reqs, n_tokens, model.cfg.vocab_size, what,
+                  faulted=fault_plan is not None)
+    return [list(r.out_tokens) for r in reqs], eng.stats()
+
+
+def sampling_parity(model, params, c, vocab):
+    """Reduced qwen3-14b sampled on the card twice from seed 0 (streams
+    identical), then under a dispatch-fault plan (streams equal to the
+    fault-free run's: the retry replays the generator's draws)."""
+    from repro_torch.serve.faults import FaultPlan
+    prompts = make_requests(1, c, vocab)
+    a, _ = sampled_run(model, params, c, prompts, "cuda", c["new_tokens"])
+    b, _ = sampled_run(model, params, c, prompts, "cuda", c["new_tokens"])
+    check(a == b, "sampled runs of one seed differ on the card")
+    plan = FaultPlan(11, dispatch_rate=0.3)
+    f, st = sampled_run(model, params, c, prompts, "cuda", c["new_tokens"],
+                        fault_plan=plan, what="sampled, dispatch faults")
+    check(st["rounds_retried"] >= 1 and plan.by_kind.get("dispatch", 0),
+          f"sampled, dispatch faults: {st['rounds_retried']} rounds retried")
+    check(st["requests_quarantined"] == 0,
+          "sampled, dispatch faults: a request was quarantined")
+    check(f == a, "sampled, dispatch faults: streams differ from the "
+          "fault-free run")
+    return {"sampled_qwen3": {"temperature": SAMPLE_T, "seed": 0,
+                              "same_seed_identical": True,
+                              "faults_replayed_identical": True,
+                              "rounds_retried": st["rounds_retried"],
+                              "dispatch_faults": plan.by_kind.get(
+                                  "dispatch", 0)}}
+
+
 def phase_serve(out):
     """Full-width qwen3-14b (published dims, bf16, random weights drawn
     on the card) through the main path; the launch counters are zeroed
@@ -1414,9 +1603,9 @@ def phase_serve(out):
                 "semaphore_admission": SEMAPHORE_ADMISSION.launches}
     check_drained(eng, reqs, c["new_tokens"], cfg.vocab_size, "full width")
     check(launches["paged_decode"] > 0 and launches["paged_decode"]
-          == cfg.num_layers * eng.decode_steps_run,
+          == attention_layers(cfg) * eng.decode_steps_run,
           f"paged_decode launched {launches['paged_decode']} times, want "
-          f"{cfg.num_layers} x {eng.decode_steps_run} decode steps")
+          f"{attention_layers(cfg)} x {eng.decode_steps_run} decode steps")
     check(launches["semaphore_admission"] > 0,
           "semaphore_admission never launched on the main path")
     check(eng.grant_log == list(range(c["requests"])),
@@ -1774,9 +1963,9 @@ def phase_prefix(out):
                                cfg.vocab_size)
     launches = {name: k.launches for name, k in counters.items()}
     steps = sum(e.decode_steps_run for e in engines.values())
-    check(launches["paged_decode"] == cfg.num_layers * steps,
+    check(launches["paged_decode"] == attention_layers(cfg) * steps,
           f"prefix: paged_decode launched {launches['paged_decode']} times, "
-          f"want {cfg.num_layers} x {steps} decode steps")
+          f"want {attention_layers(cfg)} x {steps} decode steps")
     check(launches["semaphore_admission"] > 0,
           "semaphore_admission never launched on the prefix path")
     out["launches_prefix"] = launches
@@ -1937,7 +2126,7 @@ def lifecycle_runs(model, params, c, prompts, device, vocab, names):
         r["decode_launches"] = PAGED_DECODE.launches - launched
         if device == "cuda":
             check(r["decode_launches"]
-                  == model.cfg.num_layers * eng.decode_steps_run,
+                  == attention_layers(model.cfg) * eng.decode_steps_run,
                   f"{what}: paged_decode launched {r['decode_launches']} "
                   f"times for {eng.decode_steps_run} decode steps")
         kinds = r["faults_by_kind"]
@@ -2100,9 +2289,9 @@ def phase_lifecycle(out):
     open_loop_s = time.perf_counter() - t0
     launches = {name: k.launches for name, k in counters.items()}
     steps = sum(r["decode_steps"] for r in rec.values()) + ol["decode_steps"]
-    check(launches["paged_decode"] == cfg.num_layers * steps,
+    check(launches["paged_decode"] == attention_layers(cfg) * steps,
           f"lifecycle: paged_decode launched {launches['paged_decode']} "
-          f"times, want {cfg.num_layers} x {steps} decode steps")
+          f"times, want {attention_layers(cfg)} x {steps} decode steps")
     check(launches["semaphore_admission"] > 0,
           "semaphore_admission never launched on the lifecycle path")
     out["launches_lifecycle"] = launches
@@ -2176,9 +2365,10 @@ def serve_family(arch, layers, n_requests):
                 "semaphore_admission": SEMAPHORE_ADMISSION.launches}
     check_drained(eng, reqs, c["new_tokens"], cfg.vocab_size, arch)
     check(launches["paged_decode"] > 0 and launches["paged_decode"]
-          == cfg.num_layers * eng.decode_steps_run,
+          == attention_layers(cfg) * eng.decode_steps_run,
           f"{arch}: paged_decode launched {launches['paged_decode']} times, "
-          f"want {cfg.num_layers} x {eng.decode_steps_run} decode steps")
+          f"want {attention_layers(cfg)} x {eng.decode_steps_run} decode "
+          f"steps")
     check(launches["semaphore_admission"] > 0,
           f"{arch}: semaphore_admission never launched")
     check(eng.grant_log == list(range(n_requests)),
@@ -2243,6 +2433,219 @@ def phase_families(out):
     return {"allocated_before_gb": before_gb, "settings": SERVE,
             "long_prompts": FAMILY_LONG_PROMPTS, "models": models,
             "launches": total}
+
+
+# ------------------------------------------------------- phase 12: ssm
+#: phase 12's models (arch, layers kept or None for full depth, requests)
+#: on phase 4's settings. jamba-1.5-large-398b keeps 4 of its 72 layers
+#: (attention + 3 mamba, MoE on layers 1 and 3): about 23 B parameters,
+#: 46 GB in bf16; one whole 8-layer period holds about 77 GB of experts.
+SSM_FULL = (("falcon-mamba-7b", None, 8), ("jamba-1.5-large-398b", 4, 4))
+#: requests of the sampled runs on falcon-mamba's weights
+SSM_SAMPLED_REQUESTS = 4
+#: draws of the frequency check and its bound: 5e-3 is 3.16 standard
+#: deviations of one category's frequency over 1e5 draws in the worst
+#: case (p = 1/2); the smaller probabilities of a 65024-wide row spread
+#: less
+SAMPLE_DRAWS = 100_000
+SAMPLE_BATCH = 5_000
+SAMPLE_BOUND = 5e-3
+
+
+def timed_engine(eng):
+    """Wrap the engine's prefill and round dispatch so each call
+    synchronises the card and adds its seconds; returns the running
+    sums and call counts."""
+    import torch
+    acc = {"prefill_s": 0.0, "prefill_calls": 0, "dispatch_s": 0.0,
+           "dispatch_calls": 0}
+
+    def wrap(fn, key):
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            acc[key + "_s"] += time.perf_counter() - t0
+            acc[key + "_calls"] += 1
+            return r
+        return timed
+
+    eng._prefill_impl = wrap(eng._prefill_impl, "prefill")
+    eng._dispatch = wrap(eng._dispatch, "dispatch")
+    return acc
+
+
+def serve_counting(engine, prompts, new_tokens):
+    """:func:`serve`, counting the rounds that start with a queue (each
+    plans its admission: one admission-kernel launch)."""
+    import torch
+    t0 = time.perf_counter()
+    reqs = [engine.submit(p, new_tokens) for p in prompts]
+    queued = 0
+    while engine.queue or engine.active:
+        queued += bool(engine.queue)
+        engine.step()
+    torch.cuda.synchronize()
+    return reqs, time.perf_counter() - t0, queued
+
+
+def serve_ssm(arch, layers, n_requests):
+    """One recurrent decoder at full width (bf16, random weights drawn on
+    the card from seed 0), depth cut to ``layers`` when given, through
+    the phase-4 engine's arguments; the launch counters are zeroed just
+    before the run and read just after. Returns (record, launches,
+    model, params)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.paged_attention import PAGED_DECODE
+    from repro_torch.kernels.semaphore import SEMAPHORE_ADMISSION
+    from repro_torch.models import build_model
+    from repro_torch.models.common import count_params
+    cfg = full = get_arch(arch)
+    if layers:
+        cfg = dataclasses.replace(full, num_layers=layers)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    c = dict(SERVE, requests=n_requests)
+    prompts = make_requests(2, c, cfg.vocab_size)
+    eng = make_engine(model, params, c, "cuda", **SSM_ENGINE)
+    check(engine_gates(eng) == RECURRENT_GATES,
+          f"{arch}: resolved {engine_gates(eng)}, want the reference's "
+          f"{RECURRENT_GATES}")
+    acc = timed_engine(eng)
+    PAGED_DECODE.launches = 0
+    SEMAPHORE_ADMISSION.launches = 0
+    reqs, dt, queued = serve_counting(eng, prompts, c["new_tokens"])
+    launches = {"paged_decode": PAGED_DECODE.launches,
+                "semaphore_admission": SEMAPHORE_ADMISSION.launches}
+    check_drained(eng, reqs, c["new_tokens"], cfg.vocab_size, arch)
+    check(eng.grant_log == list(range(n_requests)),
+          f"{arch}: grant log {eng.grant_log}")
+    n_attn = attention_layers(cfg)
+    check(launches["paged_decode"] == n_attn * eng.decode_steps_run,
+          f"{arch}: paged_decode launched {launches['paged_decode']} times, "
+          f"want {n_attn} attention layers x {eng.decode_steps_run} decode "
+          f"steps")
+    check(queued > 0 and launches["semaphore_admission"] == queued,
+          f"{arch}: semaphore_admission launched "
+          f"{launches['semaphore_admission']} times, want one a round with "
+          f"a queue ({queued})")
+    cache = model.init_cache(2, c["page_size"], "cuda", state_batch=1)
+    cache["len"] = torch.zeros(1, dtype=torch.int32, device="cuda")
+    cache["pages"] = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
+    logits, _ = model.decode_step(
+        params, cache, torch.tensor([1], dtype=torch.int32, device="cuda"),
+        attn_impl="fused")
+    check(tuple(logits.shape) == (1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"{arch}: decode logits not finite")
+    st = eng.stats()
+    rec = {"arch": arch, "layers": cfg.num_layers,
+           "attention_layers": n_attn,
+           "depth_cut": None if not layers else (
+               f"{full.num_layers} -> {layers} layers: "
+               f"{2 * count_params(build_model(full).spec_tree()) / 1e9:.0f}"
+               f" GB of bf16 weights whole, over the card's 80 GB"),
+           "params": count_params(model.spec_tree()), "init_s": init_s,
+           "requests": n_requests, "prompt_lens": [len(p) for p in prompts],
+           "gates": engine_gates(eng), "wall_s": dt, "tokens": st["tokens"],
+           "tok_per_s": st["tokens"] / dt, "rounds": eng.step_clock,
+           "rounds_with_queue": queued,
+           "decode_steps": eng.decode_steps_run,
+           "prefill_tokens": st["prefill_tokens"],
+           "pad_tokens": st["pad_tokens"],
+           "prefill_s": acc["prefill_s"],
+           "prefill_ms_per_token": (1e3 * acc["prefill_s"]
+                                    / max(st["prefill_tokens"], 1)),
+           "dispatch_rounds": acc["dispatch_calls"],
+           "decode_ms_per_round": (1e3 * acc["dispatch_s"]
+                                   / max(acc["dispatch_calls"], 1)),
+           "lock_acquires": st["lock_acquires"],
+           "lock_acquires_per_token": st["lock_acquires_per_token"],
+           "all_finished": True, "pages_leaked": 0, "launches": launches}
+    return rec, launches, model, params
+
+
+def sampling_full(model, params):
+    """Sampling on a full-width model's weights: SSM_SAMPLED_REQUESTS of
+    phase 4's requests at SAMPLE_T twice from seed 0 (streams identical,
+    every request finished, no page leaked); then SAMPLE_DRAWS draws of
+    the engine's ``_sample`` from one fixed logits row of the vocabulary's
+    width on the card, every category's frequency within SAMPLE_BOUND of
+    ``softmax(logits / T)``."""
+    import torch
+    vocab = model.cfg.vocab_size
+    c = dict(SERVE, requests=SSM_SAMPLED_REQUESTS)
+    prompts = make_requests(2, c, vocab)
+    t0 = time.perf_counter()
+    a, _ = sampled_run(model, params, c, prompts, "cuda", c["new_tokens"],
+                       what=f"{model.cfg.name} sampled")
+    b, _ = sampled_run(model, params, c, prompts, "cuda", c["new_tokens"],
+                       what=f"{model.cfg.name} sampled again")
+    check(a == b, f"{model.cfg.name}: sampled runs of one seed differ")
+    runs_s = time.perf_counter() - t0
+    eng = make_engine(model, params, dict(c, capacity=1), "cuda",
+                      temperature=SAMPLE_T, seed=0, **SSM_ENGINE)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    logits = 3.0 * torch.randn(vocab, generator=gen, device="cuda")
+    counts = torch.zeros(vocab, dtype=torch.float64, device="cuda")
+    t0 = time.perf_counter()
+    for _ in range(SAMPLE_DRAWS // SAMPLE_BATCH):
+        draws = eng._sample(logits[None].expand(SAMPLE_BATCH, vocab))
+        counts += torch.bincount(draws.long(), minlength=vocab).double()
+    torch.cuda.synchronize()
+    draws_s = time.perf_counter() - t0
+    p = torch.softmax(logits.double() / SAMPLE_T, dim=-1)
+    gap = float((counts / SAMPLE_DRAWS - p).abs().max())
+    check(gap < SAMPLE_BOUND, f"{model.cfg.name}: sampled frequencies "
+          f"{gap} from the softmax, bound {SAMPLE_BOUND}")
+    return {"requests": SSM_SAMPLED_REQUESTS, "temperature": SAMPLE_T,
+            "seed": 0, "same_seed_identical": True, "runs_s": runs_s,
+            "tokens_per_run": sum(len(s) for s in a),
+            "draws": SAMPLE_DRAWS, "width": vocab,
+            "max_frequency_gap": gap, "bound": SAMPLE_BOUND,
+            "top_probability": float(p.max()), "draws_s": draws_s}
+
+
+def phase_ssm(out):
+    """The recurrent decoders at full width (SSM_FULL), one model on the
+    card at a time after earlier weights are freed: falcon-mamba-7b at
+    its published depth, then sampling on its weights, then jamba cut to
+    4 layers. Per model: the gates resolved, every request finished,
+    FIFO grants, no page leaked, the decode kernel once per attention
+    layer of each decode step (none for falcon-mamba), the admission
+    kernel once per round with a queue; tokens/s, prefill ms per token,
+    ms per decode round and peak memory."""
+    import gc
+    import torch
+    out.pop("serve_weights", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    before_gb = torch.cuda.memory_allocated() / 2 ** 30
+    check(before_gb < 1.0, f"earlier weights still hold {before_gb:.1f} GB "
+          f"of the card")
+    models, total = {}, {}
+    for arch, layers, n in SSM_FULL:
+        torch.cuda.reset_peak_memory_stats()
+        rec, launches, model, params = serve_ssm(arch, layers, n)
+        if model.cfg.attention_free:
+            rec["sampling"] = sampling_full(model, params)
+        rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        models[arch] = rec
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches_ssm"] = total
+    return {"allocated_before_gb": before_gb, "settings": SERVE,
+            "models": models, "launches": total}
 
 
 # ------------------------------------------------- phase 11: servebench
@@ -2462,9 +2865,10 @@ def servebench_full(out):
           > 0, f"servebench full width: launches {launches}")
     # only the fused rows decode through the kernel: one launch per layer
     # of each of their decode steps
-    check(launches["paged_decode"] % cfg.num_layers == 0,
+    check(launches["paged_decode"] % attention_layers(cfg) == 0,
           f"servebench full width: {launches['paged_decode']} decode "
-          f"launches, not a multiple of {cfg.num_layers} layers")
+          f"launches, not a multiple of {attention_layers(cfg)} attention "
+          f"layers")
     for key in ("lock_acquires_per_token", "p50_wait_steps",
                 "p99_wait_steps", "decode_dispatches"):
         check(len({r[key] for r in fused}) == 1,
@@ -2793,10 +3197,11 @@ def kernels_line(out):
                              ("lifecycle", "launches_lifecycle"),
                              ("families", "launches_families"),
                              ("primitives", "launches_primitives"),
-                             ("servebench", "launches_servebench"))
+                             ("servebench", "launches_servebench"),
+                             ("ssm", "launches_ssm"))
                          if key in out},
                      **{key: k[key] for key in (
-                         "hd256", "call_ms", "launch_floor_ms",
+                         "hd256", "jamba", "call_ms", "launch_floor_ms",
                          "past_register_capacity", "past_staging",
                          "past_shared_memory") if key in k}})
     return {"kernels": rows, "launches": out.get("launches", {}),
@@ -2806,6 +3211,7 @@ def kernels_line(out):
             "launches_families": out.get("launches_families", {}),
             "launches_primitives": out.get("launches_primitives", {}),
             "launches_servebench": out.get("launches_servebench", {}),
+            "launches_ssm": out.get("launches_ssm", {}),
             "card": out.get("card")}
 
 
@@ -2814,14 +3220,14 @@ PHASES = {1: ("card", phase_card), 2: ("kernels", phase_kernels),
           5: ("profile", phase_profile), 6: ("primitives", phase_primitives),
           7: ("slots", phase_slots), 8: ("prefix", phase_prefix),
           9: ("lifecycle", phase_lifecycle), 10: ("families", phase_families),
-          11: ("servebench", phase_servebench)}
+          11: ("servebench", phase_servebench), 12: ("ssm", phase_ssm)}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,6,7,8,9,10,11",
+    ap.add_argument("--phases", default="1,2,3,4,6,7,8,9,10,11,12",
                     help="comma-separated phases to run (default: 1-4 and "
-                         "6-11; 5, the profile, runs only when named)")
+                         "6-12; 5, the profile, runs only when named)")
     ap.add_argument("--profile-layout", default="paged",
                     choices=("paged", "slots"),
                     help="the engine phase 5 profiles: the main path "
@@ -2838,6 +3244,7 @@ def main(argv=None) -> int:
               f"({e})", file=sys.stderr)
         return 2
     out = {"profile_layout": args.profile_layout}
+    start = time.perf_counter()
     try:
         for p in sorted(int(x) for x in args.phases.split(",")):
             name, fn = PHASES[p]
@@ -2848,6 +3255,7 @@ def main(argv=None) -> int:
     except SmokeFailure as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
         return 1
+    emit({"total_seconds": time.perf_counter() - start})
     if "kernels" in out:
         emit(kernels_line(out))
     emit({"ok": True, "device": {

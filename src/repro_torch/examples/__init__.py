@@ -1,0 +1,4 @@
+"""Runnable examples of the port, twins of the repository's
+``examples/serve_lm.py`` and ``examples/serve_stream.py``: the same
+workloads and asserts, through ``repro_torch`` on ``--device`` (``cuda``
+by default; ``--device cpu`` runs the plain versions)."""

@@ -1,7 +1,8 @@
-"""Transformer block wiring: pre-norm attention + pre-norm FFN (dense or
-MoE), over the full sequence, the contiguous slot cache or the paged
-arena (counterpart of ``repro.models.blocks``). Mamba blocks are not
-ported yet."""
+"""Block wiring: a pre-norm mixer (attention or mamba) + a pre-norm FFN
+(dense or MoE), over the full sequence, the contiguous slot cache or the
+paged arena (counterpart of ``repro.models.blocks``). A mamba block has
+no FFN sublayer when ``d_ff == 0``, and its state ``{"conv", "h"}`` has
+no time axis: it stays slot-dense in either layout."""
 
 from __future__ import annotations
 
@@ -10,22 +11,26 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 
 from . import attention as attn
+from . import mamba as mb
 from . import moe as moe_mod
 from .layers import mlp, mlp_spec, rmsnorm, rmsnorm_spec
 
 
-def _require_ported(kind: str) -> None:
-    if kind == "mamba":
-        raise ValueError("mamba blocks are not ported yet")
-
-
 def block_spec(cfg, kind: str, use_moe: bool, dtype):
-    _require_ported(kind)
-    return {"ln1": rmsnorm_spec(cfg.d_model),
-            "mixer": attn.attention_spec(cfg, dtype),
-            "ln2": rmsnorm_spec(cfg.d_model),
-            "ffn": (moe_mod.moe_spec(cfg, dtype) if use_moe else
-                    mlp_spec(cfg.d_model, cfg.d_ff, cfg.activation, dtype))}
+    p = {"ln1": rmsnorm_spec(cfg.d_model),
+         "mixer": (mb.mamba_spec(cfg, dtype) if kind == "mamba"
+                   else attn.attention_spec(cfg, dtype))}
+    if kind != "mamba" or cfg.d_ff > 0:
+        p["ln2"] = rmsnorm_spec(cfg.d_model)
+        p["ffn"] = (moe_mod.moe_spec(cfg, dtype) if use_moe else
+                    mlp_spec(cfg.d_model, cfg.d_ff, cfg.activation, dtype))
+    return p
+
+
+#: why a model with a mamba layer has no chunked prefill
+MAMBA_NOT_CHUNKED = ("chunked prefill requires attention layers — mamba "
+                     "prefill is recurrent and cannot resume from a KV "
+                     "cache")
 
 
 def window_for(cfg, kind: str) -> Optional[int]:
@@ -34,7 +39,9 @@ def window_for(cfg, kind: str) -> Optional[int]:
 
 def _ffn(p, x, cfg, use_moe: bool) -> Tuple[torch.Tensor, Dict]:
     """Pre-norm FFN sublayer with its residual; the MoE aux (``{}`` for a
-    dense FFN)."""
+    dense FFN, or for a mamba block without one)."""
+    if "ffn" not in p:
+        return x, {}
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
     if use_moe:
         y, aux = moe_mod.moe_ffn(p["ffn"], h, cfg)
@@ -45,9 +52,13 @@ def _ffn(p, x, cfg, use_moe: bool) -> Tuple[torch.Tensor, Dict]:
 def block_forward(p, x: torch.Tensor, cfg, kind: str, use_moe: bool,
                   positions: torch.Tensor) -> Tuple[torch.Tensor, Dict, Dict]:
     """Full-sequence pass (causal). x [B,S,D]; ``positions`` [B,S].
-    Returns (x, cache entry ``{"k", "v"}`` [B,S,KV,hd], the MoE aux)."""
-    _require_ported(kind)
+    Returns (x, cache entry, the MoE aux): ``{"k", "v"}`` [B,S,KV,hd]
+    for attention, ``{"conv", "h"}`` (the final state) for mamba."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    if kind == "mamba":
+        y, (conv, hs) = mb.mamba_forward(p["mixer"], h, cfg)
+        x, aux = _ffn(p, x + y, cfg, use_moe)
+        return x, {"conv": conv, "h": hs}, aux
     q, k, v = attn.qkv_project(p["mixer"], cfg, h, positions)
     y = attn.full_attention(p["mixer"], cfg, q, k, v, causal=True,
                             window=window_for(cfg, kind))
@@ -80,10 +91,19 @@ def block_decode(p, x: torch.Tensor, cache: Dict, cache_len: torch.Tensor,
     paged read path. ``write_plan`` (from
     :func:`attention.page_write_plan`, or for [B] lengths on the
     contiguous cache :func:`attention.row_write_plan`) may be shared by
-    every layer."""
-    _require_ported(kind)
+    every layer.
+
+    A mamba layer steps its state ``{"conv", "h"}`` (``[B, ...]``, no
+    time axis) in place on every row, whatever its length: a frozen or
+    retired row's state is scratch until its slot is refilled."""
     cl = torch.as_tensor(cache_len, device=x.device)
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    if kind == "mamba":
+        y, (conv, hs) = mb.mamba_decode_step(
+            p["mixer"], h, (cache["conv"], cache["h"]), cfg)
+        cache["conv"].copy_(conv)
+        cache["h"].copy_(hs)
+        return _ffn(p, x + y, cfg, use_moe)[0], cache
     positions = (cl[:, None] if cl.dim() == 1
                  else cl.reshape(1, 1).expand(x.shape[0], 1))
     q, k, v = attn.qkv_project(p["mixer"], cfg, h, positions)
@@ -126,8 +146,13 @@ def block_prefill_chunk(p, x: torch.Tensor, cache: Dict, cfg, kind: str,
     lanes the engine parks at its drop sentinel, which write nothing in
     either layout (``pages`` None: the contiguous cache). K/V are
     written before attention reads the cache (scatter-then-attend), so
-    the result does not depend on how the prompt was chunked."""
-    _require_ported(kind)
+    the result does not depend on how the prompt was chunked.
+
+    Attention layers only: a mamba prefill is recurrent and cannot
+    resume from a cache, so the engine never chunks a model that has
+    one."""
+    if kind == "mamba":
+        raise ValueError(MAMBA_NOT_CHUNKED)
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     q, k, v = attn.qkv_project(p["mixer"], cfg, h, positions)
     window = window_for(cfg, kind)

@@ -1,5 +1,5 @@
-"""Decoder-only language model, inference paths (counterpart of
-``repro.models.lm.LM``).
+"""Decoder-only language model — dense, MoE, pure SSM and hybrid —
+inference paths (counterpart of ``repro.models.lm.LM``).
 
 Parameters keep the reference's tree: ``embed/tokens``,
 ``periods/layer_<j>/...`` stacked over the periods on a leading axis,
@@ -15,6 +15,9 @@ place by the layers:
   serving);
 * paged — ``[n_periods, num_pages, ps, KV, hd]`` arenas plus the
   engine-owned ``len`` [B] vector and ``pages`` [B, P] block table.
+
+A mamba layer's entry is its recurrent state ``{conv, h}`` in either
+layout: one row per slot or sequence, no time axis.
 
 Ported: ``forward``, one-shot ``prefill`` (with and without ``length=``),
 ``init_cache``, ``prefill_chunk`` and ``decode_step``. ``loss_fn`` goes
@@ -32,8 +35,14 @@ from . import blocks
 from .common import init_params, stack_specs, tree_map
 from .layers import (embed, embedding_spec, lm_head_spec, rmsnorm,
                      rmsnorm_spec, unembed)
+from .mamba import mamba_state_shape
 
 Tree = Dict[str, Any]
+
+#: the cache leaves with a time axis (an attention layer's); the paged
+#: layout pages them, and every other leaf (a mamba layer's state) keeps
+#: one row per sequence
+TIME_LEAVES = ("k", "v")
 
 
 class LM:
@@ -68,23 +77,36 @@ class LM:
         return init_params(self.spec_tree(), generator, device)
 
     # ---------------------------------------------------------------- cache
-    def init_cache(self, batch_size: int, max_len: int, device) -> Tree:
-        """Zero cache tree ``periods/layer_<j>/{k,v}`` of shape
-        ``[n_periods, batch_size, max_len, KV, hd]`` (leftover layers
-        without the leading axis) plus ``len``. With ``batch_size =
-        num_pages`` and ``max_len = page_size`` the k/v leaves are
-        exactly the paged arenas (serve.kv_pages.PagedSlotPool)."""
+    def init_cache(self, batch_size: int, max_len: int, device,
+                   state_batch: Optional[int] = None) -> Tree:
+        """Zero cache tree plus ``len``: per attention layer ``{k, v}``
+        of shape ``[n_periods, batch_size, max_len, KV, hd]``, per mamba
+        layer ``{conv [n_periods, B, cw-1, DI] (model dtype), h
+        [n_periods, B, DI, N] (float32)}`` with ``B = state_batch``
+        (default ``batch_size``); leftover layers without the leading
+        axis. With ``batch_size = num_pages``, ``max_len = page_size``
+        and ``state_batch`` the slot count, the k/v leaves are exactly
+        the paged arenas and the mamba state stays slot-dense
+        (serve.kv_pages.PagedSlotPool)."""
         cfg = self.cfg
-        shape = (batch_size, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+        sb = batch_size if state_batch is None else state_batch
 
-        def entry(lead):
-            return {n: torch.zeros(lead + shape, dtype=cfg.dtype,
-                                   device=device) for n in ("k", "v")}
+        def entry(kind, lead):
+            if kind == "mamba":
+                cshape, hshape = mamba_state_shape(cfg, sb)
+                shapes = {"conv": (cshape, cfg.dtype),
+                          "h": (hshape, torch.float32)}
+            else:
+                kv = ((batch_size, max_len, cfg.num_kv_heads,
+                       cfg.resolved_head_dim), cfg.dtype)
+                shapes = {"k": kv, "v": kv}
+            return {n: torch.zeros(lead + shape, dtype=dt, device=device)
+                    for n, (shape, dt) in shapes.items()}
 
         return {
-            "periods": {f"layer_{j}": entry((self.n_periods,))
-                        for j in range(len(self.layout))},
-            "leftover": {f"layer_{j}": entry(())
+            "periods": {f"layer_{j}": entry(kind, (self.n_periods,))
+                        for j, (kind, _) in enumerate(self.layout)},
+            "leftover": {f"layer_{j}": entry(self.layout[j][0], ())
                          for j in range(len(self.leftover))},
             "len": torch.zeros((), dtype=torch.int32, device=device),
         }
@@ -104,12 +126,14 @@ class LM:
             yield (params["leftover"][name], cache["leftover"][name],
                    kind, use_moe)
 
-    def _arena_shape(self, cache: Tree) -> Tuple[int, int]:
+    def _arena_shape(self, cache: Tree) -> Optional[Tuple[int, int]]:
         """(num_pages, page_size) of a paged arena, (B, max_len) of a
-        contiguous cache."""
-        k = cache["periods"]["layer_0"]["k"] if self.n_periods else \
-            cache["leftover"]["layer_0"]["k"]
-        return k.shape[-4], k.shape[-3]
+        contiguous cache; None when no layer is attention."""
+        for group in ("periods", "leftover"):
+            for entry in cache[group].values():
+                if TIME_LEAVES[0] in entry:
+                    return entry["k"].shape[-4], entry["k"].shape[-3]
+        return None
 
     def _embed(self, params: Tree, tokens: torch.Tensor) -> torch.Tensor:
         x = embed(params["embed"], tokens).to(self.cfg.dtype)
@@ -139,7 +163,8 @@ class LM:
         """Embed, every layer in depth order (causal, positions 0..S-1),
         final norm. Returns (x, cache, the summed MoE aux). With
         ``want_cache`` the cache is the per-layer K/V ``[n_periods, B, S,
-        KV, hd]`` (leftover layers unstacked), else None."""
+        KV, hd]`` or mamba state (leftover layers unstacked), else
+        None."""
         cfg = self.cfg
         x = self._embed(params, tokens)
         b, s = tokens.shape
@@ -172,9 +197,14 @@ class LM:
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
         if not want_cache:
             return x, None, aux_acc
-        stacked = {name: {n: torch.stack([c[n] for c in cs])
-                          for n in ("k", "v")}
-                   for name, cs in periods.items() if cs}
+        if self.n_periods:
+            stacked = {name: {n: torch.stack([c[n] for c in cs])
+                              for n in cs[0]}
+                       for name, cs in periods.items()}
+        else:
+            # no whole period (jamba cut below its 8-layer pattern): the
+            # reference's scan still emits every entry, empty
+            stacked = self.init_cache(b, s, x.device)["periods"]
         return x, {"periods": stacked, "leftover": leftover}, aux_acc
 
     # ------------------------------------------------------------- serving
@@ -185,7 +215,9 @@ class LM:
         """Run the prompt ``batch["tokens"]`` [B,S] and build the
         contiguous cache. Returns (last logits [B,V], cache).
 
-        Without ``length`` the logits are position S-1's and ``len`` is
+        Without ``length`` (the only form for a model with a mamba
+        layer: its prefill is recurrent, so prompts run at their exact
+        length) the logits are position S-1's and ``len`` is
         the scalar S. With ``length`` ([B], right-padded prompts) they are
         position ``clip(length - 1, 0, S - 1)``'s per row and ``len`` is
         that vector, so decode attends only to real tokens. K/V are
@@ -208,10 +240,15 @@ class LM:
     @staticmethod
     def _pad_cache(cache: Tree, s: int, max_len: int) -> Tree:
         """Zero-pad every k/v leaf's time axis (``ndim - 3``: after the
-        stacked-period and batch axes) from ``s`` to ``max_len``."""
+        stacked-period and batch axes) from ``s`` to ``max_len``; the
+        mamba state has no time axis and is left as it is."""
         if max_len < s:
             raise ValueError(f"max_len {max_len} is shorter than the "
                              f"prompt ({s})")
+
+        def pad_entry(entry):
+            return {n: pad(a) if n in TIME_LEAVES else a
+                    for n, a in entry.items()}
 
         def pad(a):
             t_axis = a.dim() - 3
@@ -219,8 +256,8 @@ class LM:
             shape[t_axis] = max_len - s
             return torch.cat([a, a.new_zeros(shape)], dim=t_axis)
 
-        return {"periods": tree_map(pad, cache["periods"]),
-                "leftover": tree_map(pad, cache["leftover"])}
+        return {g: {name: pad_entry(e) for name, e in cache[g].items()}
+                for g in ("periods", "leftover")}
 
     def prefill_chunk(self, params: Tree, cache: Tree, tokens: torch.Tensor,
                       positions: torch.Tensor, write_pos: torch.Tensor
@@ -230,8 +267,11 @@ class LM:
         cache). ``tokens``/``positions``/``write_pos`` are [B,C]; lanes
         whose ``write_pos`` is out of the table or the row (the engine's
         drop sentinel) write nothing. ``len`` does not advance — the
-        prefill cursor is engine state."""
+        prefill cursor is engine state. A model with a mamba layer
+        raises, as its block does."""
         cfg = self.cfg
+        if "mamba" in cfg.layer_pattern:
+            raise ValueError(blocks.MAMBA_NOT_CHUNKED)
         pages = cache.get("pages")
         if pages is not None:
             plan = attn.page_write_plan(pages, write_pos,
@@ -252,17 +292,18 @@ class LM:
         """One decode step. ``tokens`` [B]. Returns (logits [B,V], cache
         with ``len + 1``). A cache with ``pages`` takes the paged path,
         where ``attn_impl`` picks the read (``"gather"`` or ``"fused"``);
-        otherwise the contiguous one, at a scalar or per-row ``len``."""
+        otherwise the contiguous one, at a scalar or per-row ``len``. A
+        mamba layer steps its slot-dense state; the block table does not
+        touch it."""
         cfg = self.cfg
         cache_len = cache["len"]
         pages = cache.get("pages")
         plan = None               # one write plan serves every layer
-        if pages is not None:
-            plan = attn.page_write_plan(pages, cache_len,
-                                        *self._arena_shape(cache))
-        elif cache_len.dim() == 1:
-            plan = attn.row_write_plan(cache_len,
-                                       self._arena_shape(cache)[1])
+        arena = self._arena_shape(cache)
+        if arena is not None and pages is not None:
+            plan = attn.page_write_plan(pages, cache_len, *arena)
+        elif arena is not None and cache_len.dim() == 1:
+            plan = attn.row_write_plan(cache_len, arena[1])
         x = self._embed(params, tokens[:, None])
         for p, c, kind, use_moe in self._layers(params, cache):
             x, _ = blocks.block_decode(p, x, c, cache_len, cfg, kind,

@@ -68,8 +68,21 @@ word) or of the CUDA runtime leaves ``step`` at once, unretried, with
 nothing quarantined, so no fault of the card is absorbed as a round
 failure.
 
-Decoding is greedy; sampling raises "not ported yet" rather than
-silently running greedy.
+**Sampling** (``temperature > 0``) draws from ``softmax(logits / T)``
+through an explicit ``torch.Generator`` on the engine's device (Philox
+on a card) seeded from ``seed``, in the reference's draw order: one draw
+per one-shot prefill, one per decode step of a round (every row of the
+batch), one per chunked completion. A failed dispatch restores the
+generator's state from before it, so the retried round replays the same
+draws. Sampling takes the gates of a model with a mamba layer, as in the
+reference: eager page growth, no chunked prefill, no prefix sharing or
+cache under ``auto``, full-batch dispatch.
+
+**Recurrent models** (a ``mamba`` layer: falcon-mamba, jamba) prefill
+at the exact prompt length, never padded (``_can_pad``), and their state
+``{conv, h}`` stays slot-dense in both layouts; decode steps it on every
+row, frozen and vacant ones included, as the reference's batched decode
+does, and an insert overwrites a refilled slot's row.
 
 The reference relies on JAX's dropping scatters; the port masks lanes
 out *before* each scatter instead: the ``_DROP_POS`` write sentinel and
@@ -110,8 +123,20 @@ from repro_torch.sync import SyncLibrary
 _DROP_POS = 2 ** 30
 
 
-def _not_ported(what: str):
-    raise ValueError(f"{what} is not ported yet")
+def _sample(logits: torch.Tensor, temperature: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Next tokens [B] int32 from logits [B, V]: argmax at temperature
+    0, else one categorical draw per row from ``softmax(logits / T)`` by
+    the Gumbel-max rule (the form of the reference's
+    ``jax.random.categorical``), its uniforms from ``generator``."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    u = torch.rand(logits.shape, generator=generator, dtype=torch.float32,
+                   device=logits.device)
+    tiny = torch.finfo(torch.float32).tiny
+    gumbel = -torch.log(-torch.log(u.clamp_(min=tiny)))
+    return torch.argmax(logits.float() / temperature + gumbel,
+                        dim=-1).to(torch.int32)
 
 
 class RoundDispatchError(RuntimeError):
@@ -134,13 +159,12 @@ class GenerationResult:
 
 class ServeEngine:
     """Legacy engine: one whole-prompt prefill, then a per-step Python
-    decode loop over the batch (no slot reuse, no admission). Greedy;
-    runs on the device ``params`` live on."""
+    decode loop over the batch (no slot reuse, no admission). Greedy at
+    temperature 0, else sampled; runs on the device ``params`` live
+    on."""
 
     def __init__(self, model, params, *, max_len: int = 256,
                  temperature: float = 0.0):
-        if temperature > 0.0:
-            _not_ported("sampling (temperature > 0)")
         self.model = model
         self.params = params
         self.max_len = max_len
@@ -150,17 +174,25 @@ class ServeEngine:
         return self.model.prefill(self.params, batch, max_len=self.max_len)
 
     def generate(self, batch: Dict[str, torch.Tensor], n_tokens: int,
-                 eos_id: Optional[int] = None) -> GenerationResult:
-        """``n_tokens`` greedy tokens per row of ``batch["tokens"]``; with
-        ``eos_id`` a row that emitted it keeps emitting it, and the loop
-        stops early once every row has."""
+                 eos_id: Optional[int] = None, *,
+                 generator: Optional[torch.Generator] = None
+                 ) -> GenerationResult:
+        """``n_tokens`` tokens per row of ``batch["tokens"]``: one draw
+        from ``generator`` (default seeded 0 on the batch's device) for
+        the prefill's token and one per decode step; with ``eos_id`` a
+        row that emitted it keeps emitting it, and the loop stops early
+        once every row has."""
+        T = self.temperature
+        if generator is None and T > 0.0:
+            generator = torch.Generator(
+                device=batch["tokens"].device).manual_seed(0)
         logits, cache = self.prefill(batch)
-        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        tok = _sample(logits, T, generator)
         outs = [tok]
         done = torch.zeros_like(tok, dtype=torch.bool)
         for _ in range(n_tokens - 1):
             logits, cache = self.model.decode_step(self.params, cache, tok)
-            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            tok = _sample(logits, T, generator)
             if eos_id is not None:
                 done = done | (tok == eos_id)
                 tok = torch.where(done, torch.full_like(tok, eos_id), tok)
@@ -275,7 +307,11 @@ class SlotServeEngine:
     kernel (``"gather"`` through gather-then-attend), and bucketed
     dispatch (``"auto"``) is on. ``prefix_sharing`` ("auto": on for the
     paged layout) and ``prefix_cache`` ("off" by default; "auto": on for
-    the paged layout) resolve as the reference's; ``cache_watermark`` is
+    the paged layout) resolve as the reference's. A model with a mamba
+    layer, or ``temperature > 0`` (sampled from a generator seeded with
+    ``seed``), resolves as the reference does too: eager growth, no
+    chunked prefill, sharing and the cache off under ``auto``, no
+    bucketed dispatch (``"on"`` raises); ``cache_watermark`` is
     the free-page share the cache's eviction defends (default the
     admission headroom). ``fault_plan`` installs seeded fault injection;
     ``quarantine_after`` consecutive failed rounds blamed on one request
@@ -285,7 +321,7 @@ class SlotServeEngine:
 
     def __init__(self, model, params, *, capacity: int, max_len: int,
                  temperature: float = 0.0, decode_chunk: int = 1,
-                 eos_id: Optional[int] = None,
+                 eos_id: Optional[int] = None, seed: int = 0,
                  pad_prompts_to: Optional[int] = None,
                  use_admission_kernel: bool = True,
                  plan_window: int = 64,
@@ -327,10 +363,6 @@ class SlotServeEngine:
             raise ValueError(
                 f"unknown bucketed_dispatch {bucketed_dispatch!r}; "
                 f"expected auto, on, or off")
-        if bucketed_dispatch == "on" and kv_layout != "paged":
-            raise ValueError(
-                "bucketed_dispatch='on' requires kv_layout='paged', "
-                "greedy decoding, and attention-only layers")
         if prefix_sharing not in ("auto", "on", "off"):
             raise ValueError(
                 f"unknown prefix_sharing {prefix_sharing!r}; "
@@ -345,11 +377,22 @@ class SlotServeEngine:
         if prefix_cache == "on" and kv_layout != "paged":
             raise ValueError("prefix_cache requires kv_layout='paged' "
                              "(the contiguous arena has no pages to retain)")
-        if temperature > 0.0:
-            _not_ported("sampling (temperature > 0)")
         chunk = int(prefill_chunk_tokens) if prefill_chunk_tokens else 0
         if chunk < 0:
             raise ValueError("prefill_chunk_tokens must be >= 1 (or None)")
+        # a mamba prefill is recurrent: right-padding would run the pad
+        # through the state, so such a model prefills at exact length
+        self._can_pad = "mamba" not in model.cfg.layer_pattern
+        # bucketing gathers only [K]-shaped round state (sound where the
+        # arena is batch-free: paged, no slot-dense mamba state) and
+        # needs per-row results independent of the batch shape (a draw
+        # per row of the full batch is not)
+        greedy_attn = temperature <= 0.0 and self._can_pad
+        bucket_ok = kv_layout == "paged" and greedy_attn
+        if bucketed_dispatch == "on" and not bucket_ok:
+            raise ValueError(
+                "bucketed_dispatch='on' requires kv_layout='paged', "
+                "greedy decoding, and attention-only layers")
         self.device = resolve_device(device)
         emb = params["embed"]["tokens"]
         if emb.device.type != self.device.type:
@@ -359,6 +402,7 @@ class SlotServeEngine:
         self.params = params
         self.capacity = capacity
         self.max_len = max_len
+        self.temperature = float(temperature)
         self.decode_chunk = decode_chunk
         self.eos_id = eos_id
         self.pad_prompts_to = pad_prompts_to
@@ -369,23 +413,29 @@ class SlotServeEngine:
         # the planning trace holds all K in-flight requests plus the
         # queued front; a window below capacity would cap concurrency
         self.plan_window = max(plan_window, 2 * capacity)
-        # greedy and attention-only, so the reference's bucketing gate
-        # reduces to the layout: the arena must be batch-free (paged)
-        self.bucketed_dispatch = self.paged and bucketed_dispatch in (
-            "auto", "on")
+        self.bucketed_dispatch = bucketed_dispatch == "on" or (
+            bucketed_dispatch == "auto" and bucket_ok)
         self._dispatch_cache = (DecodeDispatchCache(capacity)
                                 if self.bucketed_dispatch else None)
-        self.page_growth = page_growth if self.paged else "eager"
+        # a preemption restarts its victim from the prompt: only greedy
+        # attention regenerates the same stream (mamba state advances on
+        # paused rows; a sampled restart would retract observed tokens)
+        self.page_growth = (page_growth if self.paged and greedy_attn
+                            else "eager")
+        # a chunked prompt cannot resume a recurrent state, and its
+        # first token would be drawn in another order than one-shot's
+        if not greedy_attn:
+            chunk = 0
         self.prefill_chunk = chunk
         self.round_token_budget = (
             int(round_token_budget) if round_token_budget
             else capacity * (decode_chunk + chunk))
-        # greedy and attention-only, so "auto" turns sharing and the
-        # cache on exactly where the reference does: the paged layout
+        # "auto" turns sharing and the cache on where their streams stay
+        # comparable on and off: paged, greedy, attention prefill
         self.prefix_sharing = prefix_sharing == "on" or (
-            prefix_sharing == "auto" and self.paged)
-        cache_on = prefix_cache == "on" or (prefix_cache == "auto"
-                                            and self.paged)
+            prefix_sharing == "auto" and self.paged and greedy_attn)
+        cache_on = prefix_cache == "on" or (
+            prefix_cache == "auto" and self.paged and greedy_attn)
         self.cache_watermark = (float(cache_watermark)
                                 if cache_watermark is not None
                                 else float(admit_headroom))
@@ -467,6 +517,14 @@ class SlotServeEngine:
         #: allocator section (cancelled and quarantined requests' pages,
         #: cache evictions planned for an admission that staged nobody)
         self._deferred_free: List[np.ndarray] = []
+        #: the sampling stream (Philox on a card); greedy draws nothing
+        self._gen = torch.Generator(device=self.device).manual_seed(
+            int(seed))
+
+    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
+        """Next tokens [B] from logits [B, V] at the engine's temperature,
+        drawing from its generator."""
+        return _sample(logits, self.temperature, self._gen)
 
     # ------------------------------------------------------------ submission
     def submit(self, prompt, max_new_tokens: int, rid: Optional[int] = None,
@@ -686,7 +744,10 @@ class SlotServeEngine:
 
     def _bucket_len(self, n: int) -> int:
         """The prompt's prefill length: ``pad_prompts_to`` or the next
-        power of 2 from 8, never past what a slot holds."""
+        power of 2 from 8, never past what a slot holds; exactly ``n``
+        for a model with a mamba layer."""
+        if not self._can_pad:
+            return n
         if self.pad_prompts_to is not None:
             b = max(self.pad_prompts_to, n)
         else:
@@ -867,7 +928,7 @@ class SlotServeEngine:
                 pad_to=bucket if self.paged else self.max_len)
             self.prefill_tokens += lp
             self.pad_tokens += bucket - lp
-            tok0 = int(torch.argmax(logits[0]))
+            tok0 = int(self._sample(logits)[0])
             if self.paged:
                 self.pool.insert(slot, cache, lp, reserve=grant, ids=ids,
                                  shared_ids=sh_ids, shared_len=sh_len)
@@ -1212,14 +1273,15 @@ class SlotServeEngine:
 
     # ------------------------------------------------------------- dispatch
     def _decode_scan(self, cache, last_tok, frozen, steps):
-        """``steps`` batched greedy decode steps. Frozen rows keep their
-        last token (their cache writes are scratch); eos freezes a row
-        for the rest of the chunk."""
+        """``steps`` batched decode steps, one draw over every row per
+        step when sampling. Frozen rows keep their last token (their
+        cache writes are scratch); eos freezes a row for the rest of the
+        chunk."""
         tok, toks = last_tok, []
         for _ in range(steps):
             logits, cache = self.model.decode_step(
                 self.params, cache, tok, attn_impl=self.attention_impl)
-            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            nxt = self._sample(logits)
             nxt = torch.where(frozen, tok, nxt)
             if self.eos_id is not None:
                 frozen = frozen | (nxt == self.eos_id)
@@ -1391,6 +1453,9 @@ class SlotServeEngine:
         if paused:
             # paused rows must not touch the arena this round
             view["pages"] = self.pool.masked_table(paused)
+        # the generator is the only host state the dispatch consumes:
+        # restoring it on failure makes the retry replay the same draws
+        gen0 = self._gen.get_state()
         try:
             if self.fault_plan is not None:
                 self.fault_plan.dispatch(
@@ -1398,8 +1463,10 @@ class SlotServeEngine:
             cache, tok, toks, pf_logits, valid = self._dispatch(
                 view, frozen, chunk_rows, steps)
         except InjectedFault:
+            self._gen.set_state(gen0)
             raise
         except Exception as exc:
+            self._gen.set_state(gen0)
             if is_device_error(exc):
                 raise
             raise RoundDispatchError(exc) from exc
@@ -1437,7 +1504,7 @@ class SlotServeEngine:
             # prompt fully cached: the first output token comes from the
             # chunk's last real lane (prefilling -> decoding)
             req = self.active[s]
-            tok0 = int(torch.argmax(pf_logits[s, v - 1]))
+            tok0 = int(self._sample(pf_logits[s, v - 1][None])[0])
             self._last_tok[s] = tok0
             req.out_tokens.append(tok0)
             if self.eos_id is not None and tok0 == self.eos_id:

@@ -49,6 +49,7 @@ import torch
 from repro_torch.core.abstraction import PrimitiveKind, WaitStrategy
 from repro_torch.core.device import resolve_device
 from repro_torch.models.attention import copy_planned, page_copy_ids
+from repro_torch.models.lm import TIME_LEAVES
 from repro_torch.serve.kv_slots import cache_leaves
 from repro_torch.sync import SyncLibrary
 
@@ -587,6 +588,12 @@ class PagedSlotPool:
     worth) — the point of paging. The arena lives on ``device``
     (``cuda`` unless the caller asks for ``cpu``).
 
+    Only the ``k``/``v`` leaves are paged. Every other leaf (a mamba
+    layer's ``conv``/``h`` state, which has no time axis) stays
+    slot-dense, one row per slot, exactly as in ``SlotPool`` — so a
+    model with no attention layer (falcon-mamba) keeps an allocator
+    whose pages no layer reads, as the reference's does.
+
     Under prefix sharing one page may sit in several rows at once, and
     :meth:`check` holds "every allocated page is mapped by exactly
     ``refcount`` rows plus its external holders" (the prefix cache).
@@ -615,8 +622,10 @@ class PagedSlotPool:
             max_pages_per_slot = -(-2 * max_len // page_size)
         self.max_pages_per_slot = min(max_pages_per_slot, num_pages)
         # a cache of batch num_pages and length page_size has exactly
-        # the arena's shape on every k/v leaf
-        arena = model.init_cache(num_pages, page_size, self.device)
+        # the arena's shape on every k/v leaf; the state leaves keep one
+        # row per slot
+        arena = model.init_cache(num_pages, page_size, self.device,
+                                 state_batch=capacity)
         arena.pop("len")
         self.arena: Tree = arena
         self.lens = torch.zeros(capacity, dtype=torch.int32,
@@ -808,8 +817,9 @@ class PagedSlotPool:
         every k/v leaf along its page axis (after the period axis of a
         stacked leaf), one index upload for all of them."""
         ids = page_copy_ids(src, dst, self.pages.num_pages, self.device)
-        for *_, a in cache_leaves(self.arena):
-            copy_planned(a, ids, axis=a.dim() - 4)
+        for _, _, name, a in cache_leaves(self.arena):
+            if name in TIME_LEAVES:
+                copy_planned(a, ids, axis=a.dim() - 4)
 
     def reserve_batch(self, items: Sequence[Tuple[int, int]],
                       shared: Optional[Sequence] = None,
@@ -867,8 +877,10 @@ class PagedSlotPool:
         written; the prefill data for its positions is what the donor
         wrote. The private data fills pages ``n_shared .. ceil(S/ps)-1``
         (the last zero-padded); the rest of the grant holds stale bytes
-        masked by the length until decode writes them."""
-        s = cache_leaves(req_cache)[0][3].shape[-3]
+        masked by the length until decode writes them. Every other leaf
+        (the mamba state) is written whole into ``slot``'s row."""
+        s = next((r.shape[-3] for _, _, name, r in cache_leaves(req_cache)
+                  if name in TIME_LEAVES), 0)
         shared_ids = (np.zeros(0, np.int32) if shared_ids is None
                       else np.asarray(shared_ids, np.int32).reshape(-1))
         n_shared = int(shared_ids.size)
@@ -894,11 +906,16 @@ class PagedSlotPool:
         self._place(slot, ids, shared_ids)
         ps = self.page_size
         start = min(n_shared * ps, s)
-        if n_data:
-            dst = torch.from_numpy(ids[:n_data].astype(np.int64)).to(
-                self.device)
-            for (_, _, _, a), (_, _, _, r) in zip(cache_leaves(self.arena),
-                                                  cache_leaves(req_cache)):
+        dst = torch.from_numpy(ids[:n_data].astype(np.int64)).to(
+            self.device)
+        for (group, _, name, a), (_, _, _, r) in zip(
+                cache_leaves(self.arena), cache_leaves(req_cache)):
+            if name not in TIME_LEAVES:
+                ax = 1 if group == "periods" else 0
+                a[(slice(None),) * ax + (int(slot),)] = r.select(ax, 0).to(
+                    a.dtype)
+                continue
+            if n_data:
                 ax = a.dim() - 4            # the page axis: after periods
                 r = r.select(ax, 0)         # drop batch 1; time now at ax
                 r = r.narrow(ax, start, s - start)

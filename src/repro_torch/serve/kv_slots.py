@@ -11,9 +11,12 @@ engine's batched ``decode_step`` always runs at one shape.
 The arena is ``model.init_cache(K, max_len)`` on the engine's device.
 The reference finds each leaf's batch axis by diffing the shapes of a
 batch-1 and a batch-2 cache; the port knows its own cache layout and
-states it (:func:`batch_axes`): period-stacked k/v leaves carry the
-batch on axis 1, leftover-layer leaves on axis 0. ``insert`` writes a
-prefilled batch-1 request cache into a slot's row, in place.
+states it (:func:`batch_axes`): period-stacked leaves carry the batch
+on axis 1, leftover-layer leaves on axis 0 — an attention layer's k/v
+and a mamba layer's ``conv``/``h`` state alike. ``insert`` writes a
+prefilled batch-1 request cache into a slot's row, in place: the whole
+state row of a mamba leaf (it has no time axis), the ``max_len`` time
+row of a k/v leaf.
 
 ``len`` is a per-slot ``[K]`` int32 vector — the model's decode path
 takes vector lengths, so each row attends at its own depth. A retired
@@ -34,7 +37,7 @@ Tree = Dict[str, Any]
 
 
 def cache_leaves(cache: Tree) -> List[tuple]:
-    """``(group, layer, name, leaf)`` of every k/v leaf of a cache tree
+    """``(group, layer, name, leaf)`` of every state leaf of a cache tree
     (``len`` and ``pages`` stripped), in the reference's flattening
     order: dict keys sorted at every level."""
     out = []
@@ -47,8 +50,9 @@ def cache_leaves(cache: Tree) -> List[tuple]:
 
 def batch_axes(model) -> List[int]:
     """Batch axis of every cache leaf, in :func:`cache_leaves` order: 1
-    for the period-stacked ``[n_periods, B, T, KV, hd]`` leaves, 0 for
-    the leftover layers' ``[B, T, KV, hd]``."""
+    for the period-stacked leaves (``[n_periods, B, T, KV, hd]`` k/v,
+    ``[n_periods, B, cw-1, DI]`` conv, ``[n_periods, B, DI, N]`` h), 0
+    for the leftover layers'. Every layer holds two leaves."""
     return ([0] * 2 * len(model.leftover)      # "leftover" sorts first
             + [1] * 2 * len(model.layout))
 

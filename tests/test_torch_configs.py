@@ -30,7 +30,8 @@ from repro_torch.models.bridge import leaf_shapes
 from repro_torch.models.common import count_params
 
 PORTED = ("olmoe-1b-7b", "phi3.5-moe-42b-a6.6b", "gemma3-1b", "minitron-4b",
-          "qwen1.5-110b", "qwen3-14b")
+          "qwen1.5-110b", "qwen3-14b", "falcon-mamba-7b",
+          "jamba-1.5-large-398b")
 
 
 def _variants(name):
@@ -52,6 +53,8 @@ def _fields(cfg):
 
 
 def test_registry_holds_every_attention_only_decoder():
+    """Every decoder-only architecture: the attention-only ones and,
+    since the recurrent slice, the mamba and hybrid ones."""
     assert sorted(ARCHS) == sorted(PORTED)
     assert sorted(set(ARCHS) | set(NOT_PORTED)) == sorted(J_ARCHS)
     for name in NOT_PORTED:

@@ -5,9 +5,10 @@ capacity 3, fused attention, bucketed dispatch on and off, prefix
 sharing off. Greedy token streams, the FIFO ``grant_log``, the
 allocator's lock acquires, pauses and preemptions must be identical,
 and both pools must drain to zero pages in use — including arenas small
-enough to pause and preempt. Also: sampling, still outside the port,
-raises at construction; fault injection, cancellation and deadlines
-serve and match; the former gaps (the slot arena, one-shot
+enough to pause and preempt. Also: sampling, fault injection,
+cancellation and deadlines, outside earlier slices, serve (sampling
+resolving the reference's gates; its streams are held in
+tests/test_torch_sampling.py) and match; the former gaps (the slot arena, one-shot
 prefill, eager growth, prefix sharing and the prefix cache) serve and
 match the reference, the prefix defaults resolve as the reference's,
 and the entry point refuses to run without a card unless asked for the
@@ -124,22 +125,44 @@ def test_bucket_pad_lanes_leave_vacant_slots_untouched(models):
     (dict(kv_layout="slots", fault_plan="seeded"), "fault injection"),
 ])
 def test_features_outside_the_slice_raise(models, kw, what):
-    """Still outside: sampling. Prefix sharing and the prefix cache ("on",
-    and "auto" on the paged layout) and fault injection were outside in
-    earlier slices: those cases now build, serve to the end and match
-    the JAX engine."""
+    """Every case was outside an earlier slice and now builds and serves
+    to the end: prefix sharing and the prefix cache ("on", and "auto" on
+    the paged layout) and fault injection match the JAX engine; sampling
+    resolves the JAX engine's gates and finishes every request."""
+    if what == "sampling":
+        _serve_sampling_case(models, kw)
+        return
     if what.startswith("prefix"):
         _serve_prefix_case(models, kw)
         return
     if what == "fault injection":
         _serve_fault_case(models, kw)
         return
-    _, _, tm, tp = models
-    args = dict(capacity=2, max_len=16, kv_layout="paged",
-                prefill_chunk_tokens=4, device="cpu")
+    raise AssertionError(f"unexpected case {what!r}")
+
+
+def _serve_sampling_case(models, kw):
+    """A sampled engine (T 0.7) resolves the JAX engine's gates — eager
+    growth, no chunking, no bucketing, no sharing — and serves four
+    requests to the end, pages drained."""
+    jm, jp, tm, tp = models
+    args = dict(capacity=2, max_len=32, kv_layout="paged",
+                prefill_chunk_tokens=4, page_size=4, decode_chunk=2)
     args.update(kw)
-    with pytest.raises(ValueError, match=f"{what}.*not ported yet"):
-        SlotServeEngine(tm, tp, **args)
+    engs = [JEngine(jm, jp, seed=0, **args),
+            SlotServeEngine(tm, tp, device="cpu", **args)]
+    got = [(e.page_growth, e.prefill_chunk, e.bucketed_dispatch,
+            e.prefix_sharing, e.prefix_cache is None) for e in engs]
+    assert got[1] == got[0] == ("eager", 0, False, False, True)
+    eng = engs[1]
+    reqs = _requests(6, n=4)
+    hs = [eng.submit(p, n) for p, n in reqs]
+    eng.run_until_done()
+    assert [len(h.out_tokens) for h in hs] == [n for _, n in reqs]
+    assert eng.grant_log == [0, 1, 2, 3]
+    if eng.paged:
+        eng.pool.check()
+        assert eng.pool.pages.in_use == 0
 
 
 def _serve_prefix_case(models, kw):

@@ -50,6 +50,7 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
                 "repro_torch.serve.fuzz",
                 "repro_torch.models.attention", "repro_torch.models.lm",
                 "repro_torch.models.moe", "repro_torch.models.model_zoo",
+                "repro_torch.models.mamba",
                 "repro_torch.benchmarks.servebench",
                 "repro_torch.benchmarks.hostbench",
                 "repro_torch.benchmarks.run"):
@@ -62,6 +63,24 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
 def test_lifecycle_modules_load_neither_jax_nor_repro(module):
     """Each module of the request lifecycle, imported alone in a fresh
     interpreter, leaves ``jax`` and ``repro`` out of ``sys.modules``."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.models.mamba", "repro_torch.examples.serve_lm",
+    "repro_torch.examples.serve_stream"])
+def test_recurrent_slice_modules_load_neither_jax_nor_repro(module):
+    """The mamba block and the example twins, each imported alone in a
+    fresh interpreter, leave ``jax`` and ``repro`` out of
+    ``sys.modules``."""
     code = (
         "import importlib, sys\n"
         f"importlib.import_module({module!r})\n"

@@ -312,7 +312,8 @@ class _JTiny:
 
 
 class _TTiny:
-    def init_cache(self, b, max_len, device):
+    def init_cache(self, b, max_len, device, state_batch=None):
+        # attention only: no state leaf takes ``state_batch``
         def mk():
             return torch.zeros((2, b, max_len, 1, 2), device=device)
         return {"periods": {"layer_0": {"k": mk(), "v": mk()}},

@@ -129,9 +129,19 @@ def test_legacy_engine_tokens_match_reference(models, eos):
 
 
 def test_legacy_engine_refuses_sampling(models):
+    """Sampling raised "not ported yet" before the recurrent slice; now
+    the legacy engine samples (held in tests/test_torch_sampling.py):
+    its default stream is the generator seeded 0, drawn on the batch's
+    device, and differs from another seed's."""
     _, _, tm, tp = models
-    with pytest.raises(ValueError, match="sampling.*not ported yet"):
-        ServeEngine(tm, tp, temperature=0.5)
+    eng = ServeEngine(tm, tp, temperature=0.5)
+    batch = {"tokens": torch.arange(1, 7, dtype=torch.int32)[None]}
+    got = eng.generate(batch, 5).tokens
+    assert got.tolist() == eng.generate(
+        batch, 5, generator=torch.Generator().manual_seed(0)).tokens.tolist()
+    assert got.shape == (1, 5)
+    assert got.tolist() != eng.generate(
+        batch, 5, generator=torch.Generator().manual_seed(1)).tokens.tolist()
 
 
 # ----------------------------------------------------- ContinuousBatcher

@@ -76,6 +76,8 @@ def build(args, device):
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
+    if cfg.is_encdec or cfg.frontend is not None:
+        raise SystemExit("serve.py drives token-LM archs")
     model = build_model(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     return cfg, model, model.init(gen, device)

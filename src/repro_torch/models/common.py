@@ -37,11 +37,14 @@ def spec(shape, dtype, init: str = "normal", scale: float = 1.0) -> ArraySpec:
     return ArraySpec(tuple(int(s) for s in shape), dtype, init, scale)
 
 
-def tree_map(fn: Callable, tree):
-    """Apply ``fn`` to every leaf of a nested dict."""
+def tree_map(fn: Callable, tree, *rest):
+    """Apply ``fn`` to every leaf of a nested dict (with ``rest``: to the
+    leaves at the same paths of parallel trees, in ``tree``'s
+    structure)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
@@ -49,6 +52,16 @@ def tree_leaves(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
     if isinstance(tree, dict):
         for k, v in tree.items():
             yield from tree_leaves(v, f"{prefix}{k}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def sorted_leaves(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """``(path, leaf)`` pairs in the reference's flattening order: dict
+    keys sorted at every level."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from sorted_leaves(tree[k], f"{prefix}{k}/")
     else:
         yield prefix[:-1], tree
 

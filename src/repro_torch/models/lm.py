@@ -19,16 +19,23 @@ place by the layers:
 A mamba layer's entry is its recurrent state ``{conv, h}`` in either
 layout: one row per slot or sequence, no time axis.
 
-Ported: ``forward``, one-shot ``prefill`` (with and without ``length=``),
-``init_cache``, ``prefill_chunk`` and ``decode_step``. ``loss_fn`` goes
-with training and is not ported yet.
+A stub-frontend model (``cfg.frontend``: the VLM) has no ``embed`` leaf
+and always an ``lm_head``; it reads precomputed embeddings
+(``batch["embeds"]`` [B,S,D], and a ``[B,D]`` "next embed stub" per
+decode step) where a token model reads ids.
+
+Ported: ``forward``, ``loss_fn`` (with per-period rematerialization when
+``remat`` is set), one-shot ``prefill`` (with and without ``length=``),
+``init_cache``, ``prefill_chunk`` and ``decode_step``.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
 from . import blocks
@@ -47,12 +54,30 @@ TIME_LEAVES = ("k", "v")
 
 class LM:
     def __init__(self, cfg):
-        if cfg.frontend is not None or cfg.is_encdec:
-            raise ValueError(f"{cfg.name}: stub-frontend and encoder-decoder "
-                             f"models are not ported yet")
+        if cfg.is_encdec:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: build it "
+                             f"with models.build_model (EncDecLM)")
         self.cfg = cfg
         self.n_periods, self.pattern, self.leftover = cfg.periods()
         self.layout = blocks.period_layout(cfg)
+        # Per-period rematerialization for the loss: the train step
+        # turns it on; prefill and decode never recompute.
+        self.remat = False
+
+    def _remat_group(self) -> int:
+        """Periods per outer checkpoint of the two-level (sqrt-N) remat;
+        1 = flat, one checkpoint per period (below 16 periods, or with
+        ``REPRO_FLAT_REMAT`` set)."""
+        if os.environ.get("REPRO_FLAT_REMAT"):
+            return 1
+        np_ = self.n_periods
+        if np_ < 16:
+            return 1
+        g = 1
+        for d in range(2, int(np_ ** 0.5) + 1):
+            if np_ % d == 0:
+                g = d
+        return g
 
     # ----------------------------------------------------------- param spec
     def spec_tree(self) -> Tree:
@@ -67,8 +92,15 @@ class LM:
                 f"layer_{j}": blocks.block_spec(cfg, kind, use_moe, dtype)
                 for j, (kind, use_moe)
                 in enumerate(self.layout[:len(self.leftover)])}
-        tree["embed"] = embedding_spec(cfg.vocab_size, cfg.d_model, dtype)
-        if not cfg.tie_embeddings:
+        if cfg.frontend is None:
+            tree["embed"] = embedding_spec(cfg.vocab_size, cfg.d_model,
+                                           dtype)
+            if not cfg.tie_embeddings:
+                tree["lm_head"] = lm_head_spec(cfg.d_model, cfg.vocab_size,
+                                               dtype)
+        else:
+            # stub frontend: embeddings come in precomputed; the head
+            # still projects to the vocabulary
             tree["lm_head"] = lm_head_spec(cfg.d_model, cfg.vocab_size, dtype)
         return tree
 
@@ -141,50 +173,106 @@ class LM:
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype)
         return x
 
+    def _embed_in(self, params: Tree, batch: Dict[str, torch.Tensor]
+                  ) -> torch.Tensor:
+        """The sequence input [B,S,D]: token embeddings, or the stub
+        frontend's precomputed ``batch["embeds"]``."""
+        if self.cfg.frontend is None:
+            return self._embed(params, batch["tokens"])
+        return batch["embeds"].to(self.cfg.dtype)
+
     def _unembed(self, params: Tree, x: torch.Tensor) -> torch.Tensor:
-        if self.cfg.tie_embeddings:
+        if self.cfg.frontend is None and self.cfg.tie_embeddings:
             return unembed(params["embed"], None, x, tie=True)
         return unembed(None, params["lm_head"], x, tie=False)
 
     # ------------------------------------------------------------- forward
     def forward(self, params: Tree, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, Dict]:
-        """Full-sequence forward over ``batch["tokens"]`` [B,S]. Returns
-        (logits [B,S,V], aux): for an MoE model ``moe_aux_loss`` and
+        """Full-sequence forward over ``batch["tokens"]`` [B,S] (or the
+        stub frontend's ``batch["embeds"]`` [B,S,D]). Returns (logits
+        [B,S,V], aux): for an MoE model ``moe_aux_loss`` and
         ``moe_drop_frac`` summed over every MoE layer (per period, then
         over periods, then the leftover layers, the reference's order);
         ``{}`` otherwise."""
-        x, _, aux = self._backbone(params, batch["tokens"], want_cache=False)
+        x, _, aux = self._backbone(params, batch, want_cache=False)
         return self._unembed(params, x), aux
 
-    def _backbone(self, params: Tree, tokens: torch.Tensor, *,
+    def _period(self, params: Tree, i: int, x: torch.Tensor,
+                positions: torch.Tensor, keys: Tuple[str, ...]):
+        """Period ``i``'s layers. Returns (x, caches, the period's MoE aux
+        summed from zero in layer order)."""
+        cfg = self.cfg
+        aux_sum = {k: torch.zeros((), dtype=torch.float32, device=x.device)
+                   for k in keys}
+        caches = {}
+        for j, (kind, use_moe) in enumerate(self.layout):
+            name = f"layer_{j}"
+            p = tree_map(lambda a: a[i], params["periods"][name])
+            x, caches[name], aux = blocks.block_forward(
+                p, x, cfg, kind, use_moe, positions)
+            aux_sum = {k: aux_sum[k] + aux[k] if k in aux else aux_sum[k]
+                       for k in keys}
+        return x, caches, aux_sum
+
+    def _periods_remat(self, params: Tree, x: torch.Tensor,
+                       positions: torch.Tensor, keys: Tuple[str, ...],
+                       aux_acc: Dict) -> Tuple[torch.Tensor, Dict]:
+        """Every period under activation checkpointing: one checkpoint per
+        period, and for deep stacks (:meth:`_remat_group` > 1) an outer
+        checkpoint per group of periods that keeps only the group's
+        input, as the reference's two-level remat does. Recomputation
+        runs the same ops on the same inputs (no generator is drawn), so
+        it reproduces the forward exactly."""
+
+        def one(i, x, *acc):
+            x, _, aux_sum = self._period(params, i, x, positions, keys)
+            return (x,) + tuple(a + aux_sum[k] for a, k in zip(acc, keys))
+
+        def run(lo, hi, x, *acc):
+            carry = (x,) + acc
+            for i in range(lo, hi):
+                carry = checkpoint(one, i, *carry, use_reentrant=False)
+            return carry
+
+        group = self._remat_group()
+        carry = (x,) + tuple(aux_acc[k] for k in keys)
+        for g0 in range(0, self.n_periods, group):
+            if group > 1:
+                carry = checkpoint(run, g0, g0 + group, *carry,
+                                   use_reentrant=False)
+            else:
+                carry = run(g0, g0 + 1, *carry)
+        return carry[0], dict(zip(keys, carry[1:]))
+
+    def _backbone(self, params: Tree, batch: Dict[str, torch.Tensor], *,
                   want_cache: bool
                   ) -> Tuple[torch.Tensor, Optional[Tree], Dict]:
         """Embed, every layer in depth order (causal, positions 0..S-1),
         final norm. Returns (x, cache, the summed MoE aux). With
         ``want_cache`` the cache is the per-layer K/V ``[n_periods, B, S,
         KV, hd]`` or mamba state (leftover layers unstacked), else
-        None."""
+        None. With ``remat`` set (and no cache wanted) the periods run
+        under activation checkpointing."""
         cfg = self.cfg
-        x = self._embed(params, tokens)
-        b, s = tokens.shape
-        positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+        x = self._embed_in(params, batch)
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
         keys = ("moe_aux_loss", "moe_drop_frac") if cfg.moe else ()
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         aux_acc = {k: zero for k in keys}
         periods = {f"layer_{j}": [] for j in range(len(self.layout))}
-        for i in range(self.n_periods):
-            aux_sum = {k: zero for k in keys}
-            for j, (kind, use_moe) in enumerate(self.layout):
-                name = f"layer_{j}"
-                p = tree_map(lambda a: a[i], params["periods"][name])
-                x, c, aux = blocks.block_forward(p, x, cfg, kind, use_moe,
-                                                 positions)
-                aux_sum = {k: aux_sum[k] + aux[k] if k in aux else aux_sum[k]
-                           for k in keys}
+        if self.remat and not want_cache and torch.is_grad_enabled():
+            x, aux_acc = self._periods_remat(params, x, positions, keys,
+                                             aux_acc)
+        else:
+            for i in range(self.n_periods):
+                x, caches, aux_sum = self._period(params, i, x, positions,
+                                                  keys)
+                aux_acc = {k: aux_acc[k] + aux_sum[k] for k in keys}
                 if want_cache:
-                    periods[name].append(c)
-            aux_acc = {k: aux_acc[k] + aux_sum[k] for k in keys}
+                    for name, c in caches.items():
+                        periods[name].append(c)
         leftover = {}
         for j in range(len(self.leftover)):
             kind, use_moe = self.layout[j]
@@ -207,13 +295,39 @@ class LM:
             stacked = self.init_cache(b, s, x.device)["periods"]
         return x, {"periods": stacked, "leftover": leftover}, aux_acc
 
+    # ---------------------------------------------------------------- loss
+    def loss_fn(self, params: Tree, batch: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Mean next-token NLL (``logits[t]`` predicts ``labels[t]``)
+        over the positions ``batch["mask"]`` keeps (all without one).
+        Returns (loss, metrics ``{"loss", "tokens"}``); an MoE model adds
+        ``moe_aux_loss`` — the summed aux over the stacked MoE layers'
+        count, the reference's divisor — at weight 0.01 into the loss,
+        and reports it and ``total_loss``."""
+        logits, aux = self.forward(params, batch)
+        labels = batch["labels"]
+        logp = torch.log_softmax(logits, dim=-1)
+        ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+        mask = batch.get("mask")
+        mask = torch.ones_like(ll) if mask is None else mask.to(ll.dtype)
+        loss = -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        metrics = {"loss": loss, "tokens": torch.sum(mask)}
+        if "moe_aux_loss" in aux:
+            n_moe = sum(1 for _, m in self.layout if m) * self.n_periods
+            aux_loss = aux["moe_aux_loss"] / max(n_moe, 1)
+            metrics["moe_aux_loss"] = aux_loss
+            loss = loss + 0.01 * aux_loss
+            metrics["total_loss"] = loss
+        return loss, metrics
+
     # ------------------------------------------------------------- serving
     def prefill(self, params: Tree, batch: Dict[str, torch.Tensor], *,
                 max_len: Optional[int] = None,
                 length: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Tree]:
-        """Run the prompt ``batch["tokens"]`` [B,S] and build the
-        contiguous cache. Returns (last logits [B,V], cache).
+        """Run the prompt ``batch["tokens"]`` [B,S] (the stub frontend's
+        ``batch["embeds"]`` [B,S,D]) and build the contiguous cache.
+        Returns (last logits [B,V], cache).
 
         Without ``length`` (the only form for a model with a mamba
         layer: its prefill is recurrent, so prompts run at their exact
@@ -222,9 +336,8 @@ class LM:
         position ``clip(length - 1, 0, S - 1)``'s per row and ``len`` is
         that vector, so decode attends only to real tokens. K/V are
         zero-padded on the time axis to ``max_len`` (default S)."""
-        tokens = batch["tokens"]
-        x, cache, _ = self._backbone(params, tokens, want_cache=True)
-        s = tokens.shape[1]
+        x, cache, _ = self._backbone(params, batch, want_cache=True)
+        s = x.shape[1]
         if length is None:
             logits = self._unembed(params, x[:, -1:, :])[:, 0]
             ln = torch.tensor(s, dtype=torch.int32, device=x.device)
@@ -287,11 +400,14 @@ class LM:
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
         return self._unembed(params, x), cache
 
-    def decode_step(self, params: Tree, cache: Tree, tokens: torch.Tensor, *,
+    def decode_step(self, params: Tree, cache: Tree,
+                    token_or_embed: torch.Tensor, *,
                     attn_impl: str = "gather") -> Tuple[torch.Tensor, Tree]:
-        """One decode step. ``tokens`` [B]. Returns (logits [B,V], cache
-        with ``len + 1``). A cache with ``pages`` takes the paged path,
-        where ``attn_impl`` picks the read (``"gather"`` or ``"fused"``);
+        """One decode step. ``token_or_embed``: token ids [B], or for the
+        stub frontend the next embedding [B,D] (never read as ids).
+        Returns (logits [B,V], cache with ``len + 1``). A cache with
+        ``pages`` takes the paged path, where ``attn_impl`` picks the
+        read (``"gather"`` or ``"fused"``);
         otherwise the contiguous one, at a scalar or per-row ``len``. A
         mamba layer steps its slot-dense state; the block table does not
         touch it."""
@@ -304,7 +420,12 @@ class LM:
             plan = attn.page_write_plan(pages, cache_len, *arena)
         elif arena is not None and cache_len.dim() == 1:
             plan = attn.row_write_plan(cache_len, arena[1])
-        x = self._embed(params, tokens[:, None])
+        if cfg.frontend is None:
+            x = self._embed(params, token_or_embed[:, None])
+        else:
+            x = token_or_embed.to(cfg.dtype)
+            if x.dim() == 2:
+                x = x[:, None, :]
         for p, c, kind, use_moe in self._layers(params, cache):
             x, _ = blocks.block_decode(p, x, c, cache_len, cfg, kind,
                                        use_moe, pages, attn_impl=attn_impl,

@@ -161,7 +161,9 @@ class ServeEngine:
     """Legacy engine: one whole-prompt prefill, then a per-step Python
     decode loop over the batch (no slot reuse, no admission). Greedy at
     temperature 0, else sampled; runs on the device ``params`` live
-    on."""
+    on. The only engine that serves an encoder-decoder model: its
+    prefill encodes ``batch["embeds"]`` and decodes BOS, its self cache
+    sized by the config's ``decoder_len``, as the reference's."""
 
     def __init__(self, model, params, *, max_len: int = 256,
                  temperature: float = 0.0):
@@ -171,21 +173,24 @@ class ServeEngine:
         self.temperature = temperature
 
     def prefill(self, batch: Dict[str, torch.Tensor]):
+        if self.model.cfg.is_encdec:
+            return self.model.prefill(self.params, batch)
         return self.model.prefill(self.params, batch, max_len=self.max_len)
 
     def generate(self, batch: Dict[str, torch.Tensor], n_tokens: int,
                  eos_id: Optional[int] = None, *,
                  generator: Optional[torch.Generator] = None
                  ) -> GenerationResult:
-        """``n_tokens`` tokens per row of ``batch["tokens"]``: one draw
-        from ``generator`` (default seeded 0 on the batch's device) for
-        the prefill's token and one per decode step; with ``eos_id`` a
-        row that emitted it keeps emitting it, and the loop stops early
-        once every row has."""
+        """``n_tokens`` tokens per row of the batch (``tokens``, or the
+        encoder-decoder's ``embeds``): one draw from ``generator``
+        (default seeded 0 on the device of the batch's tensors) for the
+        prefill's token and one per decode step; with ``eos_id`` a row
+        that emitted it keeps emitting it, and the loop stops early once
+        every row has."""
         T = self.temperature
         if generator is None and T > 0.0:
             generator = torch.Generator(
-                device=batch["tokens"].device).manual_seed(0)
+                device=next(iter(batch.values())).device).manual_seed(0)
         logits, cache = self.prefill(batch)
         tok = _sample(logits, T, generator)
         outs = [tok]
@@ -346,6 +351,9 @@ class SlotServeEngine:
                  bucketed_dispatch: str = "auto",
                  sync: Optional[SyncLibrary] = None,
                  device=None):
+        cfg = model.cfg
+        if cfg.is_encdec or cfg.frontend is not None:
+            raise ValueError("SlotServeEngine drives decoder-only token LMs")
         if capacity < 1 or decode_chunk < 1:
             raise ValueError("capacity and decode_chunk must be >= 1")
         if kv_layout not in ("slots", "paged"):

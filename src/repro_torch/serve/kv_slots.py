@@ -13,7 +13,8 @@ The reference finds each leaf's batch axis by diffing the shapes of a
 batch-1 and a batch-2 cache; the port knows its own cache layout and
 states it (:func:`batch_axes`): period-stacked leaves carry the batch
 on axis 1, leftover-layer leaves on axis 0 — an attention layer's k/v
-and a mamba layer's ``conv``/``h`` state alike. ``insert`` writes a
+and a mamba layer's ``conv``/``h`` state alike — and an
+encoder-decoder's cross and self K/V on axis 1. ``insert`` writes a
 prefilled batch-1 request cache into a slot's row, in place: the whole
 state row of a mamba leaf (it has no time axis), the ``max_len`` time
 row of a k/v leaf.
@@ -39,12 +40,18 @@ Tree = Dict[str, Any]
 def cache_leaves(cache: Tree) -> List[tuple]:
     """``(group, layer, name, leaf)`` of every state leaf of a cache tree
     (``len`` and ``pages`` stripped), in the reference's flattening
-    order: dict keys sorted at every level."""
+    order: dict keys sorted at every level. An encoder-decoder cache's
+    groups (``cross``, ``self``) hold their leaves directly: ``layer``
+    is None there."""
     out = []
-    for group in sorted(k for k in cache if k in ("leftover", "periods")):
-        for layer in sorted(cache[group]):
-            for name in sorted(cache[group][layer]):
-                out.append((group, layer, name, cache[group][layer][name]))
+    for group in sorted(k for k in cache if k not in ("len", "pages")):
+        for key in sorted(cache[group]):
+            entry = cache[group][key]
+            if isinstance(entry, dict):
+                out.extend((group, key, name, entry[name])
+                           for name in sorted(entry))
+            else:
+                out.append((group, None, key, entry))
     return out
 
 
@@ -52,7 +59,11 @@ def batch_axes(model) -> List[int]:
     """Batch axis of every cache leaf, in :func:`cache_leaves` order: 1
     for the period-stacked leaves (``[n_periods, B, T, KV, hd]`` k/v,
     ``[n_periods, B, cw-1, DI]`` conv, ``[n_periods, B, DI, N]`` h), 0
-    for the leftover layers'. Every layer holds two leaves."""
+    for the leftover layers'. Every layer holds two leaves. An
+    encoder-decoder's four leaves (cross and self K/V, ``[num_layers,
+    B, T, KV, hd]``) all carry it on axis 1."""
+    if model.cfg.is_encdec:
+        return [1] * 4
     return ([0] * 2 * len(model.leftover)      # "leftover" sorts first
             + [1] * 2 * len(model.layout))
 

@@ -21,9 +21,8 @@ from repro.models import build_model as jbuild
 from repro.models import make_batch as jmake_batch
 from repro.models.common import count_params as j_count
 from repro.models.common import is_spec
-from repro_torch.configs import (ALL_SHAPES, ARCHS, NOT_PORTED, MoEConfig,
-                                 SSMConfig, get_arch, shapes_for,
-                                 skipped_shapes_for)
+from repro_torch.configs import (ALL_SHAPES, ARCHS, MoEConfig, SSMConfig,
+                                 get_arch, shapes_for, skipped_shapes_for)
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import build_model, make_batch
 from repro_torch.models.bridge import leaf_shapes
@@ -31,7 +30,7 @@ from repro_torch.models.common import count_params
 
 PORTED = ("olmoe-1b-7b", "phi3.5-moe-42b-a6.6b", "gemma3-1b", "minitron-4b",
           "qwen1.5-110b", "qwen3-14b", "falcon-mamba-7b",
-          "jamba-1.5-large-398b")
+          "jamba-1.5-large-398b", "whisper-small", "internvl2-76b")
 
 
 def _variants(name):
@@ -54,12 +53,9 @@ def _fields(cfg):
 
 def test_registry_holds_every_attention_only_decoder():
     """Every decoder-only architecture: the attention-only ones and,
-    since the recurrent slice, the mamba and hybrid ones."""
-    assert sorted(ARCHS) == sorted(PORTED)
-    assert sorted(set(ARCHS) | set(NOT_PORTED)) == sorted(J_ARCHS)
-    for name in NOT_PORTED:
-        with pytest.raises(KeyError, match="not ported yet"):
-            get_arch(name)
+    since the recurrent slice, the mamba and hybrid ones; since the
+    encoder-decoder slice the registry is the reference's whole."""
+    assert sorted(ARCHS) == sorted(PORTED) == sorted(J_ARCHS)
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("no-such-arch")
 
@@ -148,21 +144,36 @@ def test_make_batch_matches_reference_layout(name, mode):
                        batch_override=3)
     assert sorted(got) == sorted(want)
     for k in want:
-        assert tuple(got[k].shape) == tuple(want[k].shape) == (3, 16)
+        assert tuple(got[k].shape) == tuple(want[k].shape)
+        assert tuple(got[k].shape)[:2] == (
+            3, t.decoder_len if t.is_encdec and k != "embeds" else 16)
+        assert torch.equal(got[k], again[k])
+        if k == "embeds":           # frames / patches: the model dtype
+            assert got[k].dtype == t.dtype
+            assert np.asarray(want[k]).dtype == np.float32
+            continue
         assert got[k].dtype == torch.int32
         assert np.asarray(want[k]).dtype == np.int32
         assert 0 <= int(got[k].min()) and int(got[k].max()) < t.vocab_size
-        assert torch.equal(got[k], again[k])
 
 
 def test_model_zoo_refuses_the_unported_layouts():
+    """whisper-small and internvl2-76b build since the encoder-decoder
+    slice: the encoder-decoder as ``EncDecLM``, the stub frontend as an
+    ``LM`` without token embeddings; both draw embedding batches. The
+    layout nothing builds yet, an encoder-decoder handed to ``LM``
+    directly, still raises."""
+    from repro_torch.models import LM, EncDecLM
     for name in ("whisper-small", "internvl2-76b"):
         j = J_ARCHS[name]
         kw = {f.name: getattr(j, f.name) for f in dataclasses.fields(j)}
         kw["moe"], kw["ssm"] = None, None
         cfg = ArchConfig(**kw)
-        with pytest.raises(ValueError, match="not ported yet"):
-            build_model(cfg)
-        with pytest.raises(ValueError, match="not ported yet"):
-            make_batch(cfg, ALL_SHAPES["train_4k"],
-                       torch.Generator().manual_seed(0))
+        model = build_model(cfg)
+        assert isinstance(model, EncDecLM if cfg.is_encdec else LM)
+        batch = make_batch(cfg, dataclasses.replace(
+            ALL_SHAPES["train_4k"], seq_len=8), torch.Generator(
+                ).manual_seed(0), batch_override=1)
+        assert batch["embeds"].shape == (1, 8, cfg.d_model)
+    with pytest.raises(ValueError, match="encoder-decoder"):
+        LM(get_arch("whisper-small"))

@@ -53,7 +53,9 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
                 "repro_torch.models.mamba",
                 "repro_torch.benchmarks.servebench",
                 "repro_torch.benchmarks.hostbench",
-                "repro_torch.benchmarks.run"):
+                "repro_torch.benchmarks.run", "repro_torch.models.encdec",
+                "repro_torch.train.optimizer", "repro_torch.train.checkpoint",
+                "repro_torch.launch.train", "repro_torch.core.coordinator"):
         assert mod in names.split(), mod
 
 
@@ -98,6 +100,27 @@ def test_recurrent_slice_modules_load_neither_jax_nor_repro(module):
 def test_benchmark_modules_load_neither_jax_nor_repro(module):
     """Each benchmark twin, imported alone in a fresh interpreter, leaves
     ``jax`` and ``repro`` out of ``sys.modules``."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.models.encdec", "repro_torch.train.optimizer",
+    "repro_torch.train.train_loop", "repro_torch.train.data",
+    "repro_torch.train.checkpoint", "repro_torch.train.compression",
+    "repro_torch.core.coordinator", "repro_torch.launch.train",
+    "repro_torch.examples.train_lm"])
+def test_training_slice_modules_load_neither_jax_nor_repro(module):
+    """The encoder-decoder, the training substrate, the coordinator and
+    the training entry points, each imported alone in a fresh
+    interpreter, leave ``jax`` and ``repro`` out of ``sys.modules``."""
     code = (
         "import importlib, sys\n"
         f"importlib.import_module({module!r})\n"

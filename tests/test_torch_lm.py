@@ -86,16 +86,33 @@ def test_port_init_matches_spec():
 
 def test_unported_families_raise():
     """Mamba blocks were outside earlier slices and now build (held to
-    the JAX package in tests/test_torch_ssm_families.py); the
-    encoder-decoder and stub-frontend architectures still raise."""
+    the JAX package in tests/test_torch_ssm_families.py); since the
+    encoder-decoder slice so do whisper-small and internvl2-76b. What
+    still refuses them is what the reference refuses them with: the slot
+    engine and the serving launcher (token LMs only); and the mesh
+    all-reduce of compressed gradients needs several devices."""
+    from repro_torch.launch import serve
+    from repro_torch.models.encdec import EncDecLM
+    from repro_torch.serve.engine import SlotServeEngine
+    from repro_torch.train.compression import compressed_allreduce_int8
     cfg = get_arch("qwen3-14b").reduced()
     spec = build_model(dataclasses.replace(cfg, layer_pattern=("mamba",),
                                            ssm=SSMConfig())).spec_tree()
     assert "A_log" in spec["periods"]["layer_0"]["mixer"]
     assert get_arch("falcon-mamba-7b").attention_free
+    assert isinstance(build_model(get_arch("whisper-small")), EncDecLM)
+    assert "embed" not in build_model(get_arch("internvl2-76b")).spec_tree()
     for name in ("whisper-small", "internvl2-76b"):
-        with pytest.raises(KeyError, match="not ported yet"):
-            get_arch(name)
+        model = build_model(get_arch(name).reduced())
+        params = model.init(torch.Generator().manual_seed(0), "cpu")
+        with pytest.raises(ValueError, match="decoder-only token LMs"):
+            SlotServeEngine(model, params, capacity=2, max_len=16,
+                            device="cpu")
+        with pytest.raises(SystemExit, match="token-LM archs"):
+            serve.main(["--arch", name, "--smoke", "--device", "cpu",
+                        "--requests", "1"])
+    with pytest.raises(NotImplementedError, match="needs several devices"):
+        compressed_allreduce_int8(torch.zeros(8))
 
 
 def _caches(jm, tm, pages, ps, num_pages):

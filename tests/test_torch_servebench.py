@@ -22,16 +22,26 @@ Reduced qwen3-14b, float32, the reference's weights through the bridge;
 the JAX side runs its Pallas kernels in interpret mode, as its own tests
 do. Tolerance: exact, for every key that is not a time."""
 
+import contextlib
 import copy
 import importlib.util
 import json
 import pathlib
+import threading
+import time
+import types
 
 import jax
 import numpy as np
 import pytest
 import torch
 
+import repro
+import repro.core.hostsync
+import repro.serve.faults
+import repro_torch
+import repro_torch.core.hostsync
+import repro_torch.serve.faults
 from repro.configs import get_arch as jget_arch
 from repro.models import build_model as jbuild
 from repro_torch.benchmarks import servebench as sb
@@ -131,17 +141,61 @@ def _run_main(mod, argv, out_dir, **inject):
     return {k: json.loads(p.read_text()) for k, p in paths.items()}, calls
 
 
+class HolderClock:
+    """The clock the allocator watchdog reads during :func:`runs`: the
+    holding thread's own CPU time, plus the stalls a fault plan injects
+    on that thread. The watchdog counts critical sections held past 3
+    ms; on the wall clock a loaded host decides that count, since a
+    holder the scheduler preempts stays "held" while other processes
+    run (the chaos baseline then trips, and the gate ``watchdog_trips
+    == 0`` fails). A preempted thread accrues no CPU time, so on this
+    clock only a stuck holder, stalled 10 ms by the fault plan, outlasts
+    the watchdog, however busy the host is."""
+
+    def __init__(self):
+        self._stalled = threading.local()
+
+    def perf_counter(self) -> float:
+        return time.thread_time() + getattr(self._stalled, "s", 0.0)
+
+    def sleep(self, seconds: float) -> None:
+        self._stalled.s = getattr(self._stalled, "s", 0.0) + seconds
+        time.sleep(seconds)
+
+
+@contextlib.contextmanager
+def holder_clock():
+    """Both packages' mutex watchdogs on a :class:`HolderClock`, their
+    fault plans' stalls counted on it; every other use of ``time`` in
+    those modules untouched."""
+    clock = HolderClock()
+
+    def time_with(**override):
+        names = {k: getattr(time, k) for k in dir(time)
+                 if not k.startswith("_")}
+        return types.SimpleNamespace(**dict(names, **override))
+
+    with pytest.MonkeyPatch.context() as mp:
+        for mod in (repro.core.hostsync, repro_torch.core.hostsync):
+            mp.setattr(mod, "time",
+                       time_with(perf_counter=clock.perf_counter))
+        for mod in (repro.serve.faults, repro_torch.serve.faults):
+            mp.setattr(mod, "time", time_with(sleep=clock.sleep))
+        yield clock
+
+
 @pytest.fixture(scope="module")
 def runs(ref, weights, tmp_path_factory):
     """The reference main and the twin's on the same arguments and
     weights (the twin on the CPU): {"jax": ..., "port": ...} of
-    (reports, calls)."""
+    (reports, calls). The watchdogs run on :class:`HolderClock`."""
     _, _, tm, tp = weights
     jdir = tmp_path_factory.mktemp("jax")
     tdir = tmp_path_factory.mktemp("port")
-    return {"jax": _run_main(ref, CI_ARGS, jdir),
-            "port": _run_main(sb, CI_ARGS + ["--device", "cpu"], tdir,
-                              model=tm, params=tp)}
+    with holder_clock():
+        return {"jax": _run_main(ref, CI_ARGS, jdir),
+                "port": _run_main(sb, CI_ARGS + ["--device", "cpu"], tdir,
+                                  model=tm, params=tp)}
 
 
 def _strip_counters(obj):
@@ -294,6 +348,26 @@ def test_bench_chaos_equals_the_reference(ref, weights):
 
 
 # -------------------------------------------------------------------- gates
+@pytest.mark.parametrize("pkg", [repro_torch, repro], ids=["port", "jax"])
+def test_holder_clock_counts_stalls_not_preemption(pkg):
+    """On :class:`HolderClock` a critical section the host keeps off the
+    CPU for 20 ms (a real sleep: the thread runs nothing) trips no
+    watchdog of 3 ms, while a fault plan's 10 ms stall inside one does,
+    in either package's mutex."""
+    with holder_clock():
+        mutex = pkg.core.hostsync.TicketMutex()
+        mutex.set_watchdog(3e-3)
+        plan = pkg.serve.faults.FaultPlan(seed=0, stuck_rate=1.0,
+                                          stuck_hold_s=10e-3, max_faults=1)
+        with mutex:
+            time.sleep(20e-3)
+        assert mutex.watchdog_trips == 0
+        with mutex:
+            plan.alloc_hook("grant")
+        assert plan.by_kind == {"stuck": 1}
+        assert mutex.watchdog_trips == 1
+
+
 def test_ci_gates_hold_on_the_run(runs):
     """Every gate of counts and streams passes on the twin's run. The
     wall-clock gate's verdict is a time, not part of the exact parity."""

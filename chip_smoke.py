@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one CUDA card: serving, the
-encoder-decoder and stub-frontend families, training, and the sync
-library's plans with the paper's kernel benchmarks.
+encoder-decoder and stub-frontend families, training, the sync
+library's plans with the paper's kernel benchmarks, and the paper's
+simulators and table benchmarks.
 
-    python3 chip_smoke.py            # phases 1-4 and 6-14, one card
+    python3 chip_smoke.py            # phases 1-4 and 6-15, one card
 
 Run from the root of a checkout; it needs ``src/repro_torch`` beside it
 and a CUDA card, and exits non-zero without printing a result otherwise.
@@ -168,9 +169,20 @@ JSON line with its seconds:
              and moments equal the crashed run's within atol 1e-5 /
              rtol 1e-4, losses finite and falling; ms a step, tokens/s,
              peak memory; no kernel launches
+ 15 paper    the paper's simulators and table benchmarks on the card's
+             machine: membench's Tables 1-3 (simulated) and the host
+             row (measured), Table 5 (8/8), the Section-7 headlines
+             (equal to the JAX package's strings), Figures 1-3 at
+             blocks (1, 30) Tesla and (1, 32) Fermi (no violation, FA
+             rows fair), the plan latencies on host, cuda and ref, the
+             alloc sweep at the reference's defaults, the
+             sync_primitives twin on cuda (every backend == ref, the
+             admission plan on cuda) and the quickstart's 10 training
+             steps (the first batch's loss falls); launch counters prove
+             the semaphore, lock and barrier kernels carried the phase
 Then the run's total seconds, one JSON line naming every kernel with its
 launches (from phase 4 for the serving kernels, from phase 6 for the
-others; each path's, phases 8-14 among them, in ``launches_by_path``),
+others; each path's, phases 8-15 among them, in ``launches_by_path``),
 times and bound, and last the device line. Every failed check exits non-zero before the
 last line.
 """
@@ -236,6 +248,14 @@ BARRIER_CHUNK_CYCLES = 120
 # filters read them)
 DECODE_KERNELS = ("paged_decode_kernel",)
 MEMBENCH_KERNELS = ("membench_kernel", "membench_serial_kernel")
+
+# Phase 15: the Section-7 headline strings the JAX package prints (its
+# benchmarks/primitives.py::headline_speedups; simulated, so every
+# machine prints them), and the sweep's block lists, cut from the
+# --fast lists (1, 30, 120, 240) / (1, 32, 128) for the phase's time.
+PAPER_HEADLINES = ("x=12.1;paper=40", "pct=223;paper=40",
+                   "x=116.8;paper=70", "x=234.7;paper=3")
+PAPER_SWEEP = {"tesla": (1, 30), "fermi": (1, 32)}
 
 SOURCES = ["paged_decode.cu", "semaphore_admission.cu", "ticket_lock.cu",
            "xf_barrier.cu", "membench.cu"]
@@ -3629,6 +3649,119 @@ def phase_primitives(out):
             "plan_latency_us": latency, "table5": rows[-2]}
 
 
+def phase_paper(out):
+    """The paper's simulators and table benchmarks through the port's
+    entry points, on the card's machine: ``membench.main()`` (Tables 1-3
+    simulated, the host row measured), Table 5, the Section-7 headlines
+    (their strings must be the JAX package's, PAPER_HEADLINES), Figures
+    1-3 on PAPER_SWEEP's block lists (no violation, every FA mutex row
+    FIFO-fair), the plan latencies on host, cuda and ref, the alloc sweep
+    at the reference's defaults (``pool.check()`` inside), the
+    ``sync_primitives`` twin on cuda (every backend ``== ref``,
+    ``plan_admission`` on cuda) and the quickstart's 10 training steps
+    (losses finite; the first batch, scored again after the 10 steps,
+    lower than at step 0: each step draws a new batch of uniform random
+    tokens, whose loss moves from batch to batch by more than ten steps
+    of training move it). Every launch counter is
+    zeroed just before the phase and read just after; the semaphore,
+    lock and barrier kernels must each have launched."""
+    import contextlib
+    import io
+    import tempfile
+    from repro_torch.benchmarks import membench, primitives
+    from repro_torch.core.abstraction import FERMI, TESLA
+    from repro_torch.examples import quickstart, sync_primitives
+    secs = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        res = fn()
+        secs[name] = time.perf_counter() - t
+        return res
+
+    zero_launches()
+    t0 = time.perf_counter()
+    rows = timed("membench", membench.main)
+    names = [r.split(",")[0] for r in rows]
+    check(len(rows) == 24 + 2 + 1 and names[-1] == "membench_host_classify",
+          f"membench: rows {names}")
+    host = dict(kv.split("=") for kv in rows[-1].split(",")[2].split(";"))
+    check(all(math.isfinite(float(v)) for v in host.values()),
+          f"membench: host row {rows[-1]}")
+    t5 = timed("table5", primitives.table5_check)
+    check(t5[0].split(",")[2].startswith("match=8/8"), f"table5: {t5[0]}")
+    heads = timed("headlines", primitives.headline_speedups)
+    got = tuple(r.split(",")[2] for r in heads)
+    check(got == PAPER_HEADLINES, f"headlines {got}, the JAX package's "
+          f"{PAPER_HEADLINES}")
+    sweep = timed("sweep", lambda: primitives.sweep(
+        TESLA, "tesla", PAPER_SWEEP["tesla"]) + primitives.sweep(
+        FERMI, "fermi", PAPER_SWEEP["fermi"]))
+    for r in sweep:
+        name, _, derived = r.split(",", 2)
+        check("viol=" not in derived or "viol=0" in derived,
+              f"sweep: {r}")
+        check("_mutex_fa_" not in name or "fair=1" in derived,
+              f"sweep: {r}")
+    _, latency = timed("plan_latency", lambda: primitives.
+                       backend_latency_rows(backends=("host", "cuda",
+                                                      "ref")))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "BENCH_alloc.json")
+        alloc_rows = timed("alloc_sweep",
+                           lambda: primitives.alloc_sweep(path))
+        with open(path) as f:
+            alloc = json.load(f)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        demo = timed("sync_primitives",
+                     lambda: sync_primitives.main(["--device", "cuda"]))
+    text = buf.getvalue()
+    plans = [ln for ln in text.splitlines()
+             if ln.strip().startswith("semaphore[")]
+    check(len(plans) == 3 and all(ln.endswith("== ref") for ln in plans),
+          f"sync_primitives: {plans}")
+    check(demo["admission"].backend == "cuda", f"sync_primitives: "
+          f"plan_admission on {demo['admission'].backend!r}, not 'cuda'")
+    check(demo["barrier"] is not None and demo["barrier"].stragglers == [3],
+          f"sync_primitives: straggler detection {demo['barrier']}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        qs = timed("quickstart",
+                   lambda: quickstart.main(["--device", "cuda"]))
+    losses = qs["losses"]
+    check(len(losses) == 10 and all(math.isfinite(x) for x in losses),
+          f"quickstart: losses {losses}")
+    before, after = qs["first_batch_loss"]
+    check(math.isfinite(after) and after < before,
+          f"quickstart: the first batch's loss went {before} -> {after} "
+          f"over the 10 steps")
+    launches = read_launches()
+    wall_s = time.perf_counter() - t0
+    for name in ("semaphore_admission", "ticket_lock", "xf_barrier"):
+        check(launches[name] > 0, f"{name} never launched on the paper path")
+    out["launches_paper"] = launches
+    steady = sorted(qs["step_ms"][1:])
+    return {"wall_s": wall_s, "seconds_by_part": secs, "launches": launches,
+            "host_row": rows[-1], "host_p": host,
+            "membench_ratios": [r for r in rows if "_ratios_" in r],
+            "table5": t5[0].split(",", 2)[2], "headlines": list(got),
+            "sweep_rows": len(sweep), "sweep_blocks": PAPER_SWEEP,
+            "plan_latency_us": latency, "alloc_rows": alloc_rows[:-1],
+            "alloc": alloc["arms"],
+            "sync_primitives": {"plans": plans,
+                                "admission_backend":
+                                    demo["admission"].backend,
+                                "host_machine": demo["host_lib"].machine
+                                .summary(),
+                                "figure2": demo["figure2"]},
+            "quickstart": {"losses": losses, "step_ms": qs["step_ms"],
+                           "first_batch_loss": [before, after],
+                           "last_step_below_first": losses[-1] < losses[0],
+                           "ms_a_step_median_2_10":
+                               steady[len(steady) // 2]}}
+
+
 def _counters():
     from repro_torch.kernels.membench import MEMBENCH
     from repro_torch.kernels.paged_attention import PAGED_DECODE
@@ -3689,7 +3822,8 @@ def kernels_line(out):
                              ("servebench", "launches_servebench"),
                              ("ssm", "launches_ssm"),
                              ("encdec", "launches_encdec"),
-                             ("train", "launches_train"))
+                             ("train", "launches_train"),
+                             ("paper", "launches_paper"))
                          if key in out},
                      **{key: k[key] for key in (
                          "hd256", "jamba", "call_ms", "launch_floor_ms",
@@ -3705,6 +3839,7 @@ def kernels_line(out):
             "launches_ssm": out.get("launches_ssm", {}),
             "launches_encdec": out.get("launches_encdec", {}),
             "launches_train": out.get("launches_train", {}),
+            "launches_paper": out.get("launches_paper", {}),
             "card": out.get("card")}
 
 
@@ -3714,14 +3849,16 @@ PHASES = {1: ("card", phase_card), 2: ("kernels", phase_kernels),
           7: ("slots", phase_slots), 8: ("prefix", phase_prefix),
           9: ("lifecycle", phase_lifecycle), 10: ("families", phase_families),
           11: ("servebench", phase_servebench), 12: ("ssm", phase_ssm),
-          13: ("encdec", phase_encdec), 14: ("train", phase_train)}
+          13: ("encdec", phase_encdec), 14: ("train", phase_train),
+          15: ("paper", phase_paper)}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,6,7,8,9,10,11,12,13,14",
+    ap.add_argument("--phases",
+                    default="1,2,3,4,6,7,8,9,10,11,12,13,14,15",
                     help="comma-separated phases to run (default: 1-4 and "
-                         "6-14; 5, the profile, runs only when named)")
+                         "6-15; 5, the profile, runs only when named)")
     ap.add_argument("--profile-layout", default="paged",
                     choices=("paged", "slots"),
                     help="the engine phase 5 profiles: the main path "

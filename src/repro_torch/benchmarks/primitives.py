@@ -1,31 +1,45 @@
-"""The sync library's primitives: Table-5 auto-selection and the plan
-latency of every primitive on every backend.
+"""Paper Figures 1-3 + Table 5: primitive ops/sec vs concurrency, and
+the sync library's plan latency (twin of the repository's
+``benchmarks/primitives.py``; row names and ``derived`` fields letter
+for letter).
 
-Counterpart of the sync-library part of ``benchmarks/primitives.py``
-(``table5_check``, ``backend_latency_rows``, ``smoke``); the simulator
-sweeps of the paper's Figures 1-3 are not ported yet.
+Simulated Tesla (GTX295) and Fermi (GTX580) sweeps of every
+implementation the paper compares (plain Python, identical to the
+reference's on any machine):
+
+  Figure 1 (barrier):   two-stage atomic counter vs XF flag barrier
+  Figure 2 (mutex):     spin, spin+backoff, FA(+backoff)
+  Figure 3 (semaphore): spin, spin+backoff, sleeping x initial value
+
+plus:
 
 * :func:`table5_check` — ``select_impl`` on the paper's Tesla and Fermi
   abstractions against the paper's Table 5.
+* :func:`headline_speedups` — the paper's Section-7 headline numbers.
 * :func:`backend_latency_rows` — ``plan_semaphore``, ``plan_mutex`` and
   ``plan_barrier`` through ``SyncLibrary`` on the backends ``host``
   (observed execution on real threads, the equivalence oracle), ``cuda``
   (the CUDA kernels) and ``ref`` (their plain versions): the median
   latency of a whole planning call on the host clock, device-to-host
   copy included — what a scheduler pays per replanning round.
+* :func:`alloc_sweep` — the wait strategies on the real ``PagePool``
+  hot loop (measured on the CPU of whatever machine runs it).
 
-    python -m repro_torch.benchmarks.primitives             # on cuda
-    python -m repro_torch.benchmarks.primitives --device cpu
-    python -m repro_torch.benchmarks.primitives --out primitives.json
+    python -m repro_torch.benchmarks.primitives             # full sweeps
+    python -m repro_torch.benchmarks.primitives --smoke [--device cpu]
+    python -m repro_torch.benchmarks.primitives --alloc-sweep
 
-On ``--device cpu`` the ``cuda`` backend is left out. It prints its rows
-and writes the JSON summary only when given ``--out``.
+``--smoke`` runs the backend-latency and selection sections only and
+writes ``--out`` (``BENCH_primitives.json``); ``--alloc-sweep`` writes
+``--alloc-out`` (``BENCH_alloc.json``). On ``--device cpu`` the ``cuda``
+backend is left out.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import threading
 import time
 from typing import Dict, List, Tuple
 
@@ -34,6 +48,70 @@ import numpy as np
 from repro_torch.core.abstraction import (FERMI, TESLA, PrimitiveKind,
                                           classify, select_impl)
 from repro_torch.core.device import resolve_device
+from repro_torch.core.primitives_sim import run_primitive
+
+# Block counts swept (paper: 1..240 Tesla / 1..128 Fermi; we subsample).
+TESLA_BLOCKS = (1, 8, 30, 60, 120, 240)
+FERMI_BLOCKS = (1, 8, 16, 32, 64, 128)
+# The ``fast`` (CI) block lists.
+FAST_TESLA_BLOCKS = (1, 30, 120, 240)
+FAST_FERMI_BLOCKS = (1, 32, 128)
+
+# The paper truncates the Tesla spin-lock curves past ~120-130 blocks
+# ("unpredictable and poor"); the simulator reproduces that regime, so we
+# apply the same cap + a smaller event budget there.
+SPIN_CAP_TESLA = 120
+
+# How long alloc_sweep waits for each worker thread before it fails.
+JOIN_TIMEOUT_S = 600.0
+
+
+def _fmt(rows, name, us, detail):
+    rows.append(f"{name},{us:.1f},{detail}")
+
+
+def sweep(machine, name, blocks_list, *, ops=20) -> List[str]:
+    rows: List[str] = []
+
+    # ---- Figure 1: barriers
+    for impl in ("atomic", "xf"):
+        for nb in blocks_list:
+            t0 = time.perf_counter()
+            r = run_primitive(machine, "barrier", impl, blocks=nb, ops=ops)
+            us = (time.perf_counter() - t0) * 1e6
+            _fmt(rows, f"fig1_{name}_barrier_{impl}_b{nb}", us,
+                 f"ops_per_s={r.ops_per_sec:.0f}"
+                 f"{';TRUNC' if r.truncated else ''}")
+
+    # ---- Figure 2: mutexes
+    for impl in ("spin", "spin_backoff", "fa"):
+        for nb in blocks_list:
+            if name == "tesla" and impl == "spin" and nb > SPIN_CAP_TESLA:
+                continue
+            t0 = time.perf_counter()
+            r = run_primitive(machine, "mutex", impl, blocks=nb, ops=ops,
+                              max_events=8_000_000)
+            us = (time.perf_counter() - t0) * 1e6
+            _fmt(rows, f"fig2_{name}_mutex_{impl}_b{nb}", us,
+                 f"ops_per_s={r.ops_per_sec:.0f};fair={int(r.fair_fifo)};"
+                 f"viol={r.violations}{';TRUNC' if r.truncated else ''}")
+
+    # ---- Figure 3: semaphores x initial value
+    for init in (1, 2, 10, 120):
+        for impl in ("spin", "spin_backoff", "sleeping"):
+            for nb in blocks_list:
+                if name == "tesla" and impl.startswith("spin") \
+                        and nb > SPIN_CAP_TESLA:
+                    continue
+                t0 = time.perf_counter()
+                r = run_primitive(machine, "semaphore", impl, blocks=nb,
+                                  ops=min(ops, 10), initial=init,
+                                  max_events=5_000_000)
+                us = (time.perf_counter() - t0) * 1e6
+                _fmt(rows, f"fig3_{name}_sem{init}_{impl}_b{nb}", us,
+                     f"ops_per_s={r.ops_per_sec:.0f};viol={r.violations}"
+                     f"{';TRUNC' if r.truncated else ''}")
+    return rows
 
 
 def table5_check() -> List[str]:
@@ -72,6 +150,40 @@ def table5_check() -> List[str]:
     rows.append(f"table5_selection,{us:.1f},match={n_match}/8;{detail}")
     rows.append(f"table5_classes,{0.0:.1f},"
                 f"tesla={classify(TESLA)};fermi={classify(FERMI)}")
+    return rows
+
+
+def headline_speedups(ops: int = 20) -> List[str]:
+    """Paper Section 7 headline numbers."""
+    rows: List[str] = []
+    t0 = time.perf_counter()
+    tes_spin = run_primitive(TESLA, "mutex", "spin", blocks=120, ops=ops,
+                             max_events=8_000_000)
+    tes_fa = run_primitive(TESLA, "mutex", "fa", blocks=240, ops=ops)
+    fer_spin = run_primitive(FERMI, "mutex", "spin", blocks=128, ops=ops)
+    fer_bo = run_primitive(FERMI, "mutex", "spin_backoff", blocks=128, ops=ops)
+    fer_sem_spin = run_primitive(FERMI, "semaphore", "spin", blocks=128,
+                                 ops=10, initial=120, max_events=5_000_000)
+    fer_sem_slp = run_primitive(FERMI, "semaphore", "sleeping", blocks=128,
+                                ops=10, initial=120)
+    tes_sem_spin = run_primitive(TESLA, "semaphore", "spin_backoff",
+                                 blocks=120, ops=10, initial=10,
+                                 max_events=5_000_000)
+    tes_sem_slp = run_primitive(TESLA, "semaphore", "sleeping", blocks=120,
+                                ops=10, initial=10)
+    us = (time.perf_counter() - t0) * 1e6
+    rows.append(
+        f"headline_fa_vs_spin_tesla,{us:.1f},"
+        f"x={tes_fa.ops_per_sec / tes_spin.ops_per_sec:.1f};paper=40")
+    rows.append(
+        f"headline_backoff_gain_fermi,{0.0:.1f},"
+        f"pct={100 * (fer_bo.ops_per_sec / fer_spin.ops_per_sec - 1):.0f};paper=40")
+    rows.append(
+        f"headline_sleepsem_vs_spin_fermi,{0.0:.1f},"
+        f"x={fer_sem_slp.ops_per_sec / fer_sem_spin.ops_per_sec:.1f};paper=70")
+    rows.append(
+        f"headline_sleepsem_vs_spin_tesla,{0.0:.1f},"
+        f"x={tes_sem_slp.ops_per_sec / tes_sem_spin.ops_per_sec:.1f};paper=3")
     return rows
 
 
@@ -118,9 +230,7 @@ def smoke(device=None) -> Tuple[List[str], dict]:
     """Backend latencies + the selection check: the rows and the JSON
     summary. ``cuda`` joins the backends unless ``device`` is ``cpu``."""
     dev = resolve_device(device)
-    backends = ("host", "cuda", "ref") if dev.type == "cuda" \
-        else ("host", "ref")
-    rows, latency = backend_latency_rows(backends=backends)
+    rows, latency = backend_latency_rows(backends=_backends(dev))
     t5 = table5_check()
     rows += t5
     blob = {
@@ -132,21 +242,151 @@ def smoke(device=None) -> Tuple[List[str], dict]:
     return rows, blob
 
 
-def main(argv=None) -> dict:
+def alloc_sweep(
+    out: str, *, num_pages: int = 192, page_size: int = 8,
+    strategies: Tuple[str, ...] = ("spin", "spin_backoff", "sleeping",
+                                   "adaptive"),
+    threads_list: Tuple[int, ...] = (1, 2, 4, 8),
+    ops_per_thread: int = 400,
+) -> List[str]:
+    """Spin vs spin_backoff vs sleeping vs adaptive on the REAL
+    ``PagePool`` hot loop (not a simulator): every thread churns batched
+    alloc/free requests against one pool, so the guarding ticket lock
+    sees exactly the serving allocator's access pattern. Thread count is
+    the contention level; the adaptive arm re-tunes its wait strategy
+    from the measured contended-acquire window between its own
+    operations (the between-rounds contract). Writes ``out``
+    (BENCH_alloc.json): per-strategy per-thread-count ops/s, contended
+    fraction, held time, and the strategy the adaptive arm settled on.
+    """
+    from repro_torch.serve.kv_pages import PagePool, PagePoolExhausted
+    from repro_torch.sync import SyncLibrary
+
+    lib = SyncLibrary.host_default()
+    rows: List[str] = []
+    data: Dict[str, Dict[str, dict]] = {}
+    for strat in strategies:
+        data[strat] = {}
+        for nt in threads_list:
+            if strat == "spin" and nt > 2:
+                # raw spin under real contention starves the lock holder
+                # (same regime the paper truncates the Tesla spin curves
+                # in: "unpredictable and poor") — record the truncation
+                # instead of burning minutes measuring it
+                rows.append(f"alloc_{strat}_t{nt},0.0,TRUNC")
+                data[strat][str(nt)] = {"truncated": True}
+                continue
+            pool = PagePool(num_pages, page_size, sync=lib,
+                            wait_mode=strat)
+            start = threading.Barrier(nt + 1)
+
+            def worker(tid, pool=pool, start=start, nt=nt, strat=strat):
+                rng = np.random.default_rng(tid)
+                held: List[np.ndarray] = []
+                start.wait()
+                for i in range(ops_per_thread):
+                    if strat == "adaptive" and tid == 0 and i % 32 == 31:
+                        pool.retune()      # between ops, never while held
+                    n = int(rng.integers(1, 4))
+                    # keep the pool near-full so waiting really happens
+                    if held and (len(held) > 6
+                                 or pool.n_free < 4 * nt):
+                        pool.free_batch([held.pop(rng.integers(len(held)))])
+                    try:
+                        ids = pool.alloc_batch([n], [tid])[0]
+                        held.append(ids)
+                    except PagePoolExhausted:
+                        pass               # exhausted: free next iteration
+                if held:
+                    pool.free_batch(held)
+
+            threads = [threading.Thread(target=worker, args=(t,))
+                       for t in range(nt)]
+            for t in threads:
+                t.start()
+            start.wait()
+            t0 = time.perf_counter()
+            for t in threads:
+                t.join(timeout=JOIN_TIMEOUT_S)
+            dt = time.perf_counter() - t0
+            if any(t.is_alive() for t in threads):
+                raise RuntimeError(f"alloc_{strat}_t{nt}: a worker did not "
+                                   f"end within {JOIN_TIMEOUT_S:.0f} s")
+            pool.check()
+            st = pool.lock_stats()
+            got = {
+                "wall_s": dt,
+                "lock_acquires": int(st["acquires"]),
+                "acquires_per_s": st["acquires"] / dt if dt else 0.0,
+                "contended_fraction": (st["contended_acquires"]
+                                       / max(st["acquires"], 1)),
+                "held_s": st["held_s"],
+                "strategy_final": st["strategy"],
+                "retunes": int(st.get("retunes", 0)),
+            }
+            data[strat][str(nt)] = got
+            rows.append(
+                f"alloc_{strat}_t{nt},{dt * 1e6:.1f},"
+                f"acq_per_s={got['acquires_per_s']:.0f};"
+                f"contended={got['contended_fraction']:.2f};"
+                f"final={got['strategy_final']}")
+    blob = {"num_pages": num_pages, "page_size": page_size,
+            "ops_per_thread": ops_per_thread, "arms": data}
+    with open(out, "w") as f:
+        json.dump(blob, f, indent=2)
+    rows.append(f"# wrote {out}")
+    return rows
+
+
+def _backends(device) -> Tuple[str, ...]:
+    """The plan backends measured on ``device``: ``cuda`` joins ``host``
+    and ``ref`` unless the device is the CPU."""
+    return ("host", "cuda", "ref") if resolve_device(device).type == "cuda" \
+        else ("host", "ref")
+
+
+def main(fast: bool = True, device=None) -> List[str]:
+    """Figures 1-3, Table 5, the headlines and the plan latencies on
+    ``device``'s backends (the ``fast`` block lists, or the full ones)."""
+    backends = _backends(device)
+    blocks_t = TESLA_BLOCKS if not fast else FAST_TESLA_BLOCKS
+    blocks_f = FERMI_BLOCKS if not fast else FAST_FERMI_BLOCKS
+    rows = sweep(TESLA, "tesla", blocks_t)
+    rows += sweep(FERMI, "fermi", blocks_f)
+    rows += table5_check()
+    rows += headline_speedups()
+    rows += backend_latency_rows(backends=backends)[0]
+    return rows
+
+
+def cli(argv=None):
+    """The reference's command line, plus ``--device``. Returns the
+    JSON summary with ``--smoke``, else the printed rows."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--smoke", action="store_true",
+                    help="backend-latency + selection sections only; "
+                         "write the JSON artifact")
+    ap.add_argument("--alloc-sweep", action="store_true",
+                    help="wait-strategy sweep on the real PagePool hot "
+                         "loop; writes the BENCH_alloc.json artifact")
+    ap.add_argument("--out", default="BENCH_primitives.json")
+    ap.add_argument("--alloc-out", default="BENCH_alloc.json")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (host and ref backends)")
-    ap.add_argument("--out", default=None,
-                    help="also write the JSON summary to this file")
     args = ap.parse_args(argv)
-    rows, blob = smoke(args.device)
-    for r in rows:
-        print(r)
-    if args.out:
+    if args.alloc_sweep:
+        rows = alloc_sweep(args.alloc_out)
+    elif args.smoke:
+        rows, blob = smoke(args.device)
         with open(args.out, "w") as f:
             json.dump(blob, f, indent=2)
-    return blob
+        rows.append(f"# wrote {args.out}")
+    else:
+        rows = main(fast=False, device=args.device)
+    for r in rows:
+        print(r)
+    return blob if args.smoke else rows
 
 
 if __name__ == "__main__":
-    main()
+    cli()

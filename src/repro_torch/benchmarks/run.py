@@ -1,18 +1,22 @@
-"""Benchmark entry point — one section per paper table + system rows.
+"""Benchmark entry point — one section per paper table/figure + system
+rows.
 
 Counterpart of ``benchmarks/run.py``, with the sections the port has.
 Prints ``name,us_per_call,derived`` CSV lines:
 
-  table5_*, sync_*  auto-selection vs the paper's Table 5, and the sync
-                    library's plan latency per backend (``primitives``)
+  membench_*        paper Tables 1-3 (simulated Tesla/Fermi + the
+                    measured host row; ``membench``)
+  fig1/2/3_*        paper Figures 1-3 (primitive ops/s vs concurrency,
+                    simulated), ``table5_*`` the auto-selection vs the
+                    paper's Table 5, ``headline_*`` the Section-7
+                    headline speedups, ``sync_*`` the sync library's
+                    plan latency per backend (``primitives``)
   host_*            real-thread host-row sweeps (``hostbench``)
   kernel_*          every CUDA kernel against its plain version
                     (``kernels``; ``us_per_call`` is ``nan`` off the card)
 
-Not ported yet, so not offered: ``membench`` (the simulated Tables 1-3
-and the host row) and ``roofline`` (the dry-run roofline table), nor the
-simulator sweeps and headline speedups of the reference's
-``primitives`` section.
+Not offered: ``roofline`` (the dry-run roofline table reads the TPU
+dry-run's XLA artifacts; it waits on the multi-device part of the port).
 
     PYTHONPATH=src python -m repro_torch.benchmarks.run [--fast] \\
         [--section NAME] [--device cpu]
@@ -43,7 +47,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--fast", action="store_true",
                     help="smaller sweeps (CI mode)")
     ap.add_argument("--section", default=None,
-                    choices=("primitives", "hostbench", "kernels"))
+                    choices=("membench", "primitives", "hostbench",
+                             "kernels"))
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu, for the primitives and "
                          "kernels sections")
@@ -51,10 +56,13 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     t_start = time.time()
     sections = []
+    if args.section in (None, "membench"):
+        from repro_torch.benchmarks import membench
+        sections.append(("membench", membench.main))
     if args.section in (None, "primitives"):
         from repro_torch.benchmarks import primitives
-        sections.append(("primitives",
-                         lambda: primitives.smoke(args.device)[0]))
+        sections.append(("primitives", lambda: primitives.main(
+            fast=args.fast, device=args.device)))
     if args.section in (None, "hostbench"):
         from repro_torch.benchmarks import hostbench
         sections.append(("hostbench", lambda: hostbench.main(

@@ -2,7 +2,8 @@
 port's ``benchmarks/run.py`` twin: the row names equal the JAX
 package's ``benchmarks/hostbench.py`` (loaded by file path) at the same
 sizes, every rate is finite and above 0, and each section of the run
-entry point prints its rows on the CPU."""
+entry point prints its rows on the CPU (the primitives section on small
+block lists)."""
 
 import importlib.util
 import math
@@ -11,7 +12,7 @@ import pathlib
 import pytest
 import torch
 
-from repro_torch.benchmarks import hostbench, run
+from repro_torch.benchmarks import hostbench, primitives, run
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -76,9 +77,15 @@ def test_cpu_model_falls_back_to_family_and_model(tmp_path, model_name,
 
 
 @pytest.mark.parametrize("section,prefix", [
-    ("primitives", ("sync_", "table5_")), ("hostbench", ("host_",)),
-    ("kernels", ("kernel_",))])
-def test_run_sections_print_their_rows(capsys, section, prefix):
+    ("primitives", ("fig1_", "fig2_", "fig3_", "table5_", "headline_",
+                    "sync_")),
+    ("hostbench", ("host_",)), ("kernels", ("kernel_",)),
+    ("membench", ("membench_",))])
+def test_run_sections_print_their_rows(capsys, monkeypatch, section,
+                                       prefix):
+    # the --fast sweeps take minutes on the CPU: one small block list each
+    monkeypatch.setattr(primitives, "FAST_TESLA_BLOCKS", (1, 2))
+    monkeypatch.setattr(primitives, "FAST_FERMI_BLOCKS", (1, 2))
     run.main(["--fast", "--section", section, "--device", "cpu"])
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[0] == "name,us_per_call,derived"
@@ -90,9 +97,21 @@ def test_run_sections_print_their_rows(capsys, section, prefix):
     if section == "hostbench":
         assert len(rows) == 10 and all(r.split(",")[0].endswith("_t4")
                                        for r in rows)
+    if section == "membench":
+        assert len(rows) == 24 + 2 + 1
+        assert rows[-1].startswith("membench_host_classify,")
+    if section == "primitives":
+        names = [r.split(",")[0] for r in rows]
+        assert "fig2_tesla_mutex_fa_b2" in names
+        assert "fig3_fermi_sem120_sleeping_b2" in names
+        assert "headline_sleepsem_vs_spin_tesla" in names
+        assert "sync_barrier_ref" in names and not any(
+            n.endswith("_cuda") for n in names)
+        assert [r for r in rows if r.startswith("table5_selection")][0] \
+            .split(",")[2].startswith("match=8/8")
 
 
-@pytest.mark.parametrize("section", ["membench", "roofline"])
+@pytest.mark.parametrize("section", ["roofline"])
 def test_run_offers_no_section_the_port_lacks(section):
     with pytest.raises(SystemExit):
         run.main(["--section", section])

@@ -55,7 +55,12 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
                 "repro_torch.benchmarks.hostbench",
                 "repro_torch.benchmarks.run", "repro_torch.models.encdec",
                 "repro_torch.train.optimizer", "repro_torch.train.checkpoint",
-                "repro_torch.launch.train", "repro_torch.core.coordinator"):
+                "repro_torch.launch.train", "repro_torch.core.coordinator",
+                "repro_torch.core.memsim", "repro_torch.core.primitives_sim",
+                "repro_torch.core.hostbench_probe",
+                "repro_torch.benchmarks.membench",
+                "repro_torch.examples.sync_primitives",
+                "repro_torch.examples.quickstart"):
         assert mod in names.split(), mod
 
 
@@ -121,6 +126,27 @@ def test_training_slice_modules_load_neither_jax_nor_repro(module):
     """The encoder-decoder, the training substrate, the coordinator and
     the training entry points, each imported alone in a fresh
     interpreter, leave ``jax`` and ``repro`` out of ``sys.modules``."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.core.memsim", "repro_torch.core.primitives_sim",
+    "repro_torch.core.hostbench_probe", "repro_torch.benchmarks.membench",
+    "repro_torch.benchmarks.primitives",
+    "repro_torch.examples.sync_primitives",
+    "repro_torch.examples.quickstart"])
+def test_paper_slice_modules_load_neither_jax_nor_repro(module):
+    """The simulators, the host probe, the paper-table benchmarks and
+    the two example twins, each imported alone in a fresh interpreter,
+    leave ``jax`` and ``repro`` out of ``sys.modules``."""
     code = (
         "import importlib, sys\n"
         f"importlib.import_module({module!r})\n"

@@ -256,7 +256,8 @@ def test_kernelbench_twin_on_the_cpu(tmp_path, capsys):
 
 def test_primitives_twin_on_the_cpu(tmp_path, capsys):
     out = tmp_path / "primitives.json"
-    blob = primitives.main(["--device", "cpu", "--out", str(out)])
+    blob = primitives.cli(["--smoke", "--device", "cpu", "--out",
+                           str(out)])
     assert blob["device"] == "cpu"
     assert set(blob["backends_plan_latency_us"]) == {"semaphore", "mutex",
                                                      "barrier"}

@@ -336,15 +336,18 @@ def kernel_ms(fn, name, reps: int = 20):
     return None
 
 
-def host_ms(fn, reps: int = 20) -> float:
+def host_ms(fn, reps: int = 20, sync=None) -> float:
+    """Median host-clock ms of ``fn`` over ``reps`` calls after a warm
+    one, each closed by ``sync`` (a CUDA synchronise by default)."""
     import torch
+    sync = sync or torch.cuda.synchronize
     fn()
-    torch.cuda.synchronize()
+    sync()
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
         fn()
-        torch.cuda.synchronize()
+        sync()
         times.append((time.perf_counter() - t0) * 1e3)
     times.sort()
     return times[len(times) // 2]
@@ -435,7 +438,14 @@ def phase_card(out):
                       else ptxas_kernels(text))
     out["card"] = card
     out["sm_clock_mhz"] = max_mhz
-    return {"card": card, "sm_clock_max_mhz": max_mhz,
+    import torch
+    import torch.distributed as dist
+    nccl = dist.is_available() and dist.is_nccl_available()
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, NCCL "
+          f"{'available' if nccl else 'NOT available: phase 16 fails'}",
+          flush=True)
+    return {"card": card, "torch": torch.__version__, "nccl": nccl,
+            "sm_clock_max_mhz": max_mhz,
             "sm_clock_now_mhz": now_mhz, "nvcc": build.nvcc(),
             "build_s": time.perf_counter() - t0, "ptxas": ptxas}
 
@@ -1668,6 +1678,7 @@ def phase_serve(out):
     st = eng.stats()
     out["launches"] = launches
     out["serve"] = st
+    out["phase4_streams"] = {r.rid: r.out_tokens for r in reqs}
     # phase 7 serves the same requests with these weights
     out["serve_weights"] = (model, params, prompts,
                             {r.rid: r.out_tokens for r in reqs})
@@ -2531,7 +2542,8 @@ def serve_counting(engine, prompts, new_tokens):
     while engine.queue or engine.active:
         queued += bool(engine.queue)
         engine.step()
-    torch.cuda.synchronize()
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
     return reqs, time.perf_counter() - t0, queued
 
 
@@ -3762,6 +3774,477 @@ def phase_paper(out):
                                steady[len(steady) // 2]}}
 
 
+# ------------------------------------------------------- phase 16: mesh
+#: Phase 16's settings: the production mesh's tensor-parallel degree on
+#: one card (the activation policy of a (1, 16) MeshShape: qwen3-14b's
+#: 40 heads pad to 48, gemma3-1b's 4 take the 'seq' plan), the one-shot
+#: prefill gate of 16a (two prompts of 512 tokens, numpy seed 16; max
+#: |logit - tp-1 logit| within MESH_PREFILL_BOUND x max |tp-1 logit|,
+#: bf16), 16b's forward (2 x 1024 tokens, numpy seed 17, float32, within
+#: MESH_SEQ_TOL x max(1, max |tp-1 logit|)), the reduced twin's degree,
+#: and the collectives' sizes and repeats.
+MESH_TP = 16
+MESH_REDUCED_TP = 3
+MESH_PREFILL = dict(prompts=2, tokens=512, seed=16)
+MESH_PREFILL_BOUND = 3e-2
+MESH_SEQ = dict(batch=2, tokens=1024, seed=17)
+MESH_SEQ_TOL = 1e-4
+MESH_BYTES = (64 * 2 ** 10, 64 * 2 ** 20)
+MESH_REPEATS = 20
+MESH_WORLD = 4
+MESH_INT8_SEED = 18
+
+
+def mesh_policy(tp, batch_axes=()):
+    from repro_torch.launch.mesh import mesh_shape
+    from repro_torch.sharding.act import activation_sharding
+    return activation_sharding(mesh_shape({"data": 1, "model": tp}),
+                               batch_axes)
+
+
+def pad_head_params(model, params, gen):
+    """``params`` with every attention layer's ``wq`` / ``bq`` / ``wo``
+    padded to the active policy's head count (the spec tree built under
+    it): the padded rows of ``wq`` and ``wo`` drawn from ``gen`` at the
+    init's std (``wo``'s are masked at apply time), ``bq``'s zero.
+    Every other leaf is ``params``' own tensor, not a copy."""
+    import math
+    import torch
+    from repro_torch.models.bridge import check_matches
+    from repro_torch.models.common import tree_leaves
+
+    specs = dict(tree_leaves(model.spec_tree()))
+    axis = {"wq": -2, "bq": -2, "wo": -3}
+
+    def pad(tree, prefix=""):
+        out = {}
+        for k, v in tree.items():
+            path = f"{prefix}{k}"
+            if isinstance(v, dict):
+                out[k] = pad(v, path + "/")
+                continue
+            want = specs[path].shape
+            if k not in axis or tuple(v.shape) == want:
+                out[k] = v
+                continue
+            shape = list(v.shape)
+            shape[axis[k]] = want[axis[k]] - v.shape[axis[k]]
+            if specs[path].init == "zeros":
+                extra = torch.zeros(shape, dtype=v.dtype, device=v.device)
+            else:
+                std = 1.0 / math.sqrt(max(want[0], 1))
+                extra = (torch.randn(shape, generator=gen,
+                                     dtype=torch.float32, device=v.device)
+                         * std).to(v.dtype)
+            out[k] = torch.cat([v, extra], dim=axis[k])
+        return out
+
+    padded = pad(params)
+    check_matches(model, padded)
+    return padded
+
+
+def pad_reduced_twin():
+    """16a's exact gate: reduced qwen3-14b in float32 under tp 3 (4 heads
+    stored as 6), the main path's engine on cuda (the kernels) and on cpu
+    (their plain versions) with the same weights: streams, grant logs
+    and acquires identical."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.models.attention import head_plan
+    from repro_torch.models.common import tree_map
+    cfg = get_arch("qwen3-14b").reduced()
+    model = build_model(cfg)
+    c = REDUCED
+    prompts = make_requests(1, c, cfg.vocab_size)
+    runs = {}
+    with mesh_policy(MESH_REDUCED_TP):
+        check(head_plan(cfg.num_heads) == ("pad", 6),
+              f"reduced twin: head plan {head_plan(cfg.num_heads)}")
+        params_cpu = model.init(torch.Generator().manual_seed(0), "cpu")
+        check(params_cpu["periods"]["layer_0"]["mixer"]["wq"].shape[-2] == 6,
+              "reduced twin: wq not padded to 6 heads")
+        params_gpu = tree_map(lambda t: t.to("cuda"), params_cpu)
+        for dev, params in (("cuda", params_gpu), ("cpu", params_cpu)):
+            eng = make_engine(model, params, c, dev)
+            reqs, _ = serve(eng, prompts, c["new_tokens"])
+            check_drained(eng, reqs, c["new_tokens"], cfg.vocab_size,
+                          f"mesh reduced twin {dev}")
+            runs[dev] = ({r.rid: r.out_tokens for r in reqs}, eng.grant_log,
+                         eng.stats()["lock_acquires"])
+    check(runs["cuda"][0] == runs["cpu"][0],
+          "mesh reduced twin: greedy streams differ between cuda and cpu")
+    check(runs["cuda"][1] == runs["cpu"][1],
+          "mesh reduced twin: grant logs differ between cuda and cpu")
+    check(runs["cuda"][2] == runs["cpu"][2],
+          "mesh reduced twin: allocator acquire counts differ")
+    return {"tp": MESH_REDUCED_TP, "heads": [cfg.num_heads, 6],
+            "streams_identical": True, "grant_log": runs["cuda"][1],
+            "lock_acquires": runs["cuda"][2]}
+
+
+def sync(device):
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def mesh_pad(out, cfg=None, device="cuda", tp=MESH_TP, c=SERVE,
+             prefill=MESH_PREFILL):
+    """16a: full-width qwen3-14b (phase 4's weights, drawn again when
+    phase 4 did not run or they were freed) under the (1, 16) policy: 40
+    query heads stored as 48, phase 4's 8 requests through the phase-4
+    engine; the one-shot prefill gate against the tp-1 logits; the
+    reduced twin. Its core also runs on the CPU at a reduced size, given
+    ``cfg``, ``device="cpu"``, ``tp``, ``c`` and ``prefill``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.paged_attention import PAGED_DECODE
+    from repro_torch.kernels.semaphore import SEMAPHORE_ADMISSION
+    from repro_torch.models import build_model
+    from repro_torch.models.attention import head_plan
+    on_card = cfg is None
+    cfg = cfg or get_arch("qwen3-14b")
+    if on_card and "serve_weights" in out:
+        model, params, prompts, _ = out["serve_weights"]
+    else:                      # run without phase 4 or after phase 10
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device=device).manual_seed(0),
+                            device)
+        prompts = make_requests(2, c, cfg.vocab_size)
+    phase4 = out.get("phase4_streams") if on_card else None
+    rng = np.random.default_rng(prefill["seed"])
+    tokens = torch.tensor(rng.integers(
+        0, cfg.vocab_size, (prefill["prompts"], prefill["tokens"]),
+        dtype=np.int64), dtype=torch.int32, device=device)
+    with torch.no_grad():
+        want, _ = model.prefill(params, {"tokens": tokens},
+                                max_len=prefill["tokens"])
+    with mesh_policy(tp):
+        plan = head_plan(cfg.num_heads)
+        check(plan[0] == "pad", f"{cfg.name} at tp {tp}: plan {plan}")
+        t0 = time.perf_counter()
+        padded = pad_head_params(model, params, torch.Generator(
+            device=device).manual_seed(MESH_TP))
+        sync(device)
+        pad_s = time.perf_counter() - t0
+        eng = make_engine(model, padded, c, device)
+        PAGED_DECODE.launches = 0
+        SEMAPHORE_ADMISSION.launches = 0
+        reqs, dt, queued = serve_counting(eng, prompts, c["new_tokens"])
+        launches = {"paged_decode": PAGED_DECODE.launches,
+                    "semaphore_admission": SEMAPHORE_ADMISSION.launches}
+        decode_steps = eng.decode_steps_run
+        check_drained(eng, reqs, c["new_tokens"], cfg.vocab_size,
+                      "mesh pad plan")
+        # a kernel launches on the card; the CPU runs its plain version
+        on = device == "cuda"
+        check(launches["paged_decode"] == on * attention_layers(cfg)
+              * decode_steps and decode_steps > 0,
+              f"mesh pad plan: paged_decode launched "
+              f"{launches['paged_decode']} times, want "
+              f"{attention_layers(cfg)} x {decode_steps}")
+        check(launches["semaphore_admission"] == on * queued and queued > 0,
+              f"mesh pad plan: semaphore_admission launched "
+              f"{launches['semaphore_admission']} times, {queued} rounds "
+              f"with a queue")
+        check(eng.grant_log == list(range(c["requests"])),
+              f"mesh pad plan: grant log {eng.grant_log}")
+        with torch.no_grad():
+            got, _ = model.prefill(padded, {"tokens": tokens},
+                                   max_len=prefill["tokens"])
+    out["launches_mesh"] = launches
+    st = eng.stats()
+    gap = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    check(bool(torch.isfinite(got).all()), "mesh pad plan: prefill logits "
+          "not finite")
+    check(gap <= MESH_PREFILL_BOUND * scale,
+          f"mesh pad plan: prefill logits {gap} from tp 1, bound "
+          f"{MESH_PREFILL_BOUND} x {scale}")
+    same = total = 0
+    if phase4 is not None:
+        for r in reqs:
+            total += len(r.out_tokens)
+            same += sum(a == b for a, b in zip(r.out_tokens, phase4[r.rid]))
+    wq_shape = list(padded["periods"]["layer_0"]["mixer"]["wq"].shape)
+    del padded, eng
+    rec = {"arch": cfg.name, "plan": list(plan), "wq_shape": wq_shape,
+            "pad_s": pad_s, "wall_s": dt, "tokens": st["tokens"],
+            "tok_per_s": st["tokens"] / dt,
+            "decode_steps": decode_steps,
+            "rounds_with_queue": queued, "launches": launches,
+            "lock_acquires_per_token": st["lock_acquires_per_token"],
+            "all_finished": True, "pages_leaked": 0,
+            "tokens_equal_to_phase4": (same / total) if total else None,
+            "prefill_gap": gap, "prefill_max_abs_tp1": scale,
+            "prefill_gap_rel": gap / scale,
+            "prefill_bound_rel": MESH_PREFILL_BOUND}
+    if on_card:
+        rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        rec["reduced_twin"] = pad_reduced_twin()
+    return rec
+
+
+def mesh_seq(out, cfg=None, device="cuda", tp=MESH_TP, seq=MESH_SEQ):
+    """16b: gemma3-1b whole in float32 under the (1, 16) policy — the
+    'seq' plan: its 22 local layers through banded_attention, its 4
+    global ones through kv_chunked_attention — on 2 x 1024 tokens, past
+    the 512 window, against the tp-1 forward (blocked_attention) on the
+    same weights. Its core also runs on the CPU at a reduced size, given
+    ``cfg``, ``device="cpu"``, ``tp`` and ``seq``."""
+    import dataclasses
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import attention as attn
+    from repro_torch.models import build_model
+    out.pop("serve_weights", None)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    cfg = dataclasses.replace(cfg or get_arch("gemma3-1b"),
+                              param_dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(0),
+                        device)
+    rng = np.random.default_rng(seq["seed"])
+    tokens = torch.tensor(rng.integers(
+        0, cfg.vocab_size, (seq["batch"], seq["tokens"]),
+        dtype=np.int64), dtype=torch.int32, device=device)
+    calls = {}
+    names = ("banded_attention", "kv_chunked_attention", "blocked_attention")
+    real = {n: getattr(attn, n) for n in names}
+
+    def counting(name):
+        def run(*a, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            return real[name](*a, **kw)
+        return run
+
+    for n in names:
+        setattr(attn, n, counting(n))
+    try:
+        with torch.no_grad():
+            with mesh_policy(tp):
+                plan = attn.head_plan(cfg.num_heads)
+                sync(device)
+                t0 = time.perf_counter()
+                got, _ = model.forward(params, {"tokens": tokens})
+                sync(device)
+                seq_s = time.perf_counter() - t0
+            seq_calls = dict(calls)
+            calls.clear()
+            t0 = time.perf_counter()
+            want, _ = model.forward(params, {"tokens": tokens})
+            sync(device)
+            shard_s = time.perf_counter() - t0
+    finally:
+        for n in names:
+            setattr(attn, n, real[n])
+    check(plan == ("seq", cfg.num_heads), f"{cfg.name} at tp {tp}: plan "
+          f"{plan}")
+    n_local = sum(k == "local" for k in cfg.layer_kinds())
+    check(seq_calls == {"banded_attention": n_local,
+                        "kv_chunked_attention": cfg.num_layers - n_local},
+          f"seq plan paths: {seq_calls}, {n_local} local layers")
+    check(calls == {"blocked_attention": cfg.num_layers},
+          f"tp-1 paths: {calls}")
+    check(bool(torch.isfinite(got).all()), "seq plan: logits not finite")
+    gap = float((got - want).abs().max())
+    scale = max(1.0, float(want.abs().max()))
+    check(gap <= MESH_SEQ_TOL * scale,
+          f"seq plan: forward {gap} from tp 1, bound {MESH_SEQ_TOL} x "
+          f"{scale}")
+    del got, want, params
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {"arch": cfg.name, "dtype": "float32", "plan": list(plan),
+            "tokens": [seq["batch"], seq["tokens"]],
+            "window": cfg.sliding_window, "paths": seq_calls,
+            "max_abs_err": gap, "scale": scale,
+            "err_rel": gap / scale, "tol_rel": MESH_SEQ_TOL,
+            "seq_forward_s": seq_s, "shard_forward_s": shard_s}
+
+
+def int8_plain(shards):
+    """The compressed all-reduce in plain torch from every rank's shard,
+    in rank order: each piece's dequantized contributions summed in
+    float32, requantized, dequantized — the whole reduced vector."""
+    import torch
+    from repro_torch.train.compression import dequantize_int8, quantize_int8
+    n = len(shards)
+    qs = [quantize_int8(s) for s in shards]
+    pieces = []
+    for j in range(n):
+        part = [q.reshape(n, -1)[j].to(torch.float32) * s for q, s in qs]
+        summed = torch.sum(torch.stack(part), dim=0)
+        pieces.append(dequantize_int8(*quantize_int8(summed)))
+    return torch.cat(pieces)
+
+
+def collective_times(mesh, mesh3, device, sync):
+    """Median ms of each collective at MESH_BYTES (float32 vectors):
+    the barrier's one-element token, the hierarchical all-reduce (data
+    only, and data then pod on ``mesh3``), the int8 all-reduce, and one
+    ``all_reduce`` call for the same sum (the library yardstick)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.device_barrier import (
+        global_device_barrier, make_hierarchical_allreduce)
+    from repro_torch.train.compression import compressed_allreduce_int8
+    n = mesh.shape[0]
+    bar = global_device_barrier(mesh)
+    tok = torch.ones((), device=device)
+    rec = {"barrier": host_ms(lambda: bar(tok), MESH_REPEATS, sync)}
+    hier = make_hierarchical_allreduce(mesh)
+    hier3 = make_hierarchical_allreduce(mesh3, inter_axis="pod")
+    group = mesh.get_group("data")
+    for nbytes in MESH_BYTES:
+        v = torch.ones(nbytes // 4 // n * n, device=device)
+        key = (f"{nbytes >> 20}MiB" if nbytes >= 2 ** 20
+               else f"{nbytes >> 10}KiB")
+        rec[key] = {
+            "hierarchical": host_ms(lambda: hier(v), MESH_REPEATS,
+                                           sync),
+            "hierarchical_pod": host_ms(lambda: hier3(v),
+                                               MESH_REPEATS, sync),
+            "int8": host_ms(
+                lambda: compressed_allreduce_int8(v, mesh, "data"),
+                MESH_REPEATS, sync),
+            "all_reduce": host_ms(
+                lambda: dist.all_reduce(v.clone(), group=group),
+                MESH_REPEATS, sync)}
+    return rec
+
+
+def mesh_checks(mesh, mesh3, device):
+    """The three collectives on ``mesh`` (and the hierarchical one with a
+    pod axis on ``mesh3``) against their plain sums: each rank's values,
+    and whether they held."""
+    import numpy as np
+    import torch
+    from repro_torch.core.device_barrier import (
+        global_device_barrier, make_hierarchical_allreduce)
+    from repro_torch.train.compression import compressed_allreduce_int8
+    n = mesh.shape[0]
+    ranks3 = int(np.prod(mesh3.shape))
+    tok = float(global_device_barrier(mesh)(torch.ones((), device=device)))
+    tok3 = float(global_device_barrier(mesh3)(torch.ones((), device=device)))
+    rng = np.random.default_rng(MESH_INT8_SEED)
+    v = torch.tensor(rng.standard_normal(4096), dtype=torch.float32,
+                     device=device)
+    hier = make_hierarchical_allreduce(mesh)(v)
+    hier3 = make_hierarchical_allreduce(mesh3, inter_axis="pod")(v)
+    pod = mesh3.shape[0] * mesh3.shape[1]
+    shards = torch.tensor(rng.standard_normal((n, 4096)),
+                          dtype=torch.float32, device=device)
+    d = mesh.get_coordinate()[0]
+    got = compressed_allreduce_int8(shards[d].clone(), mesh, "data")
+    want = int8_plain(list(shards))
+    exact = shards.sum(0)
+    return {"barrier": tok, "barrier_pod": tok3,
+            "barrier_ok": tok == mesh.size() and tok3 == ranks3,
+            "hierarchical_ok": bool(torch.equal(hier, v * n)),
+            "hierarchical_pod_ok": bool(torch.equal(hier3, v * pod)),
+            "int8_bit_equal_plain": bool(torch.equal(got, want)),
+            "int8_max_err_vs_exact": float((got - exact).abs().max()),
+            "int8_exact_scale": float(exact.abs().max())}
+
+
+def mesh_gloo_rank(rank, world):
+    """One rank of 16c's gloo world on the card host (CPU tensors)."""
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((2, 2), ("data", "model"))
+    mesh3 = make_mesh((2, 1, 2), ("pod", "data", "model"))
+    mesh3b = make_mesh((2, 2, 1), ("pod", "data", "model"))
+    rec = {"checks": mesh_checks(mesh, mesh3, "cpu"),
+           "checks_pod_data": mesh_checks(mesh, mesh3b, "cpu")}
+    rec["times_ms"] = collective_times(mesh, mesh3b, "cpu", lambda: None)
+    return rec
+
+
+def mesh_collectives(out):
+    """16c: an NCCL world of 1 on the card (meshes (1, 1) and (1, 1, 1)),
+    then a gloo world of 4 ranks on the card host's CPU (meshes (2, 2),
+    (2, 1, 2) and (2, 2, 1)): the barrier's token, the hierarchical
+    all-reduce and the int8 all-reduce against their plain sums, and each
+    collective's median wall time at 64 KiB and 64 MiB."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import free_port, make_mesh, run_world
+    from repro_torch.train.compression import (compressed_allreduce_int8,
+                                               dequantize_int8, quantize_int8)
+    check(dist.is_nccl_available(), "this torch has no NCCL")
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        mesh3 = make_mesh((1, 1, 1), ("pod", "data", "model"))
+        nccl = mesh_checks(mesh, mesh3, "cuda")
+        v = torch.randn(1 << 20, generator=torch.Generator(
+            device="cuda").manual_seed(MESH_INT8_SEED), device="cuda")
+        rt = compressed_allreduce_int8(v, mesh, "data")
+        nccl["int8_round_trip_bit_equal"] = bool(torch.equal(
+            rt, dequantize_int8(*quantize_int8(v))))
+        nccl["times_ms"] = collective_times(mesh, mesh3, "cuda",
+                                            torch.cuda.synchronize)
+    finally:
+        dist.destroy_process_group()
+    check(nccl["barrier"] == 1.0 and nccl["barrier_ok"],
+          f"nccl world of 1: barrier token {nccl['barrier']}")
+    check(nccl["hierarchical_ok"] and nccl["hierarchical_pod_ok"],
+          "nccl world of 1: the hierarchical all-reduce is not v")
+    check(nccl["int8_bit_equal_plain"] and nccl["int8_round_trip_bit_equal"],
+          "nccl world of 1: the int8 all-reduce is not the round trip")
+    t0 = time.perf_counter()
+    ranks = run_world(mesh_gloo_rank, MESH_WORLD, "gloo", timeout=300)
+    world_s = time.perf_counter() - t0
+    for r, rec in enumerate(ranks):
+        for key in ("checks", "checks_pod_data"):
+            c = rec[key]
+            check(c["barrier_ok"], f"gloo rank {r} {key}: barrier tokens "
+                  f"{c['barrier']}, {c['barrier_pod']}")
+            check(c["hierarchical_ok"] and c["hierarchical_pod_ok"],
+                  f"gloo rank {r} {key}: hierarchical all-reduce is not "
+                  f"the plain sum")
+            check(c["int8_bit_equal_plain"], f"gloo rank {r} {key}: int8 "
+                  f"all-reduce differs from its plain version")
+            check(c["int8_max_err_vs_exact"]
+                  < 0.05 * c["int8_exact_scale"] + 1e-3,
+                  f"gloo rank {r}: int8 error {c['int8_max_err_vs_exact']}")
+    return {"nccl_world_1": nccl, "gloo_world_4": {
+        "tensors": "host CPU (gloo); one card gives NCCL a world of 1",
+        "seconds": world_s, "rank0": ranks[0],
+        "times_ms_max_over_ranks": {
+            k: (max(r["times_ms"][k] for r in ranks) if k == "barrier"
+                else {c: max(r["times_ms"][k][c] for r in ranks)
+                      for c in ranks[0]["times_ms"][k]})
+            for k in ranks[0]["times_ms"]}}}
+
+
+def phase_mesh(out):
+    """Phase 16: the 'pad' plan at full width on the main path (16a), the
+    'seq' plan's forward at full width (16b), the collectives (16c)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    pad = mesh_pad(out)
+    t1 = time.perf_counter()
+    seq = mesh_seq(out)
+    t2 = time.perf_counter()
+    coll = mesh_collectives(out)
+    return {"card": out.get("card"), "pad": pad, "seq": seq,
+            "collectives": coll,
+            "seconds_by_part": {"pad": t1 - t0, "seq": t2 - t1,
+                                "collectives": time.perf_counter() - t2}}
+
+
 def _counters():
     from repro_torch.kernels.membench import MEMBENCH
     from repro_torch.kernels.paged_attention import PAGED_DECODE
@@ -3823,7 +4306,8 @@ def kernels_line(out):
                              ("ssm", "launches_ssm"),
                              ("encdec", "launches_encdec"),
                              ("train", "launches_train"),
-                             ("paper", "launches_paper"))
+                             ("paper", "launches_paper"),
+                             ("mesh", "launches_mesh"))
                          if key in out},
                      **{key: k[key] for key in (
                          "hd256", "jamba", "call_ms", "launch_floor_ms",
@@ -3840,6 +4324,7 @@ def kernels_line(out):
             "launches_encdec": out.get("launches_encdec", {}),
             "launches_train": out.get("launches_train", {}),
             "launches_paper": out.get("launches_paper", {}),
+            "launches_mesh": out.get("launches_mesh", {}),
             "card": out.get("card")}
 
 
@@ -3850,15 +4335,15 @@ PHASES = {1: ("card", phase_card), 2: ("kernels", phase_kernels),
           9: ("lifecycle", phase_lifecycle), 10: ("families", phase_families),
           11: ("servebench", phase_servebench), 12: ("ssm", phase_ssm),
           13: ("encdec", phase_encdec), 14: ("train", phase_train),
-          15: ("paper", phase_paper)}
+          15: ("paper", phase_paper), 16: ("mesh", phase_mesh)}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,6,7,8,9,10,11,12,13,14,15",
+                    default="1,2,3,4,6,7,8,9,10,11,12,13,14,15,16",
                     help="comma-separated phases to run (default: 1-4 and "
-                         "6-15; 5, the profile, runs only when named)")
+                         "6-16; 5, the profile, runs only when named)")
     ap.add_argument("--profile-layout", default="paged",
                     choices=("paged", "slots"),
                     help="the engine phase 5 profiles: the main path "

@@ -20,8 +20,9 @@ what bounds it on the H100 and how it is laid out.
 * :func:`paged_decode_split_model` — the kernel's split and
   log-sum-exp merge in torch, which the tests hold to the JAX kernel.
 * :func:`paged_decode_fused` — the decode path's ``[B, 1, H, hd]`` ↔
-  ``[B, KV, G, hd]`` adapter (counterpart of ``ops.py``). On one card
-  the head plan is always "shard", so there are no padded heads.
+  ``[B, KV, G, hd]`` adapter (counterpart of ``ops.py``). Under the
+  ``'pad'`` head plan only the model's heads reach the kernel; the
+  padded ones come back as zeros.
 """
 
 from __future__ import annotations
@@ -259,15 +260,14 @@ def paged_decode_fused(q: torch.Tensor, k_arena: torch.Tensor,
                        v_arena: torch.Tensor, pages: torch.Tensor,
                        cache_len: torch.Tensor, n_heads: int, *,
                        window: Optional[int] = None) -> torch.Tensor:
-    """Decode-path adapter: ``q [B, 1, H, hd]`` → ``[B, 1, H, hd]``.
-    Query head ``h`` reads kv head ``h // G`` (the kv-major grouping of
-    ``expand_kv``), so the heads reshape directly to ``[B, KV, G, hd]``."""
+    """Decode-path adapter: ``q [B, 1, Hq, hd]`` → ``[B, 1, Hq, hd]``
+    (``Hq >= n_heads`` under the ``'pad'`` head plan). Query head ``h``
+    reads kv head ``h // G`` (the kv-major grouping of ``expand_kv``), so
+    the model's heads reshape directly to ``[B, KV, G, hd]``; padded
+    heads never reach the kernel and come back as zeros."""
     b, s, hq, hd = q.shape
     if s != 1:
         raise ValueError("fused paged decode is single-token (q [B,1,H,hd])")
-    if hq != n_heads:
-        raise ValueError(f"q carries {hq} heads, the model {n_heads}: head "
-                         f"padding has no use on one card")
     kv = k_arena.shape[2]
     if n_heads % kv:
         raise ValueError(f"num_heads {n_heads} not divisible by "
@@ -275,8 +275,10 @@ def paged_decode_fused(q: torch.Tensor, k_arena: torch.Tensor,
     cl = torch.as_tensor(cache_len, dtype=torch.int32, device=q.device)
     if cl.dim() == 0:
         cl = cl.expand(b)
-    qg = q[:, 0].reshape(b, kv, n_heads // kv, hd).contiguous()
+    qg = q[:, 0, :n_heads].reshape(b, kv, n_heads // kv, hd).contiguous()
     out = paged_decode(qg, k_arena, v_arena,
                        pages.to(torch.int32).contiguous(), cl.contiguous(),
-                       window=window)
-    return out.reshape(b, 1, n_heads, hd)
+                       window=window).reshape(b, 1, n_heads, hd)
+    if hq > n_heads:
+        out = torch.nn.functional.pad(out, (0, 0, 0, hq - n_heads))
+    return out

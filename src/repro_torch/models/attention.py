@@ -1,12 +1,24 @@
-"""GQA attention: full-sequence prefill, and decode over the contiguous
-slot cache or the paged KV arena (counterpart of
-``repro.models.attention``).
+"""GQA attention: tensor-parallel head planning, full-sequence prefill,
+and decode over the contiguous slot cache or the paged KV arena
+(counterpart of ``repro.models.attention``).
 
-On one card the reference's head plan is always ``"shard"`` (tensor
-parallelism 1), so query heads are never padded: ``attention_out`` and
-the fused adapter check ``Hq == num_heads``. GQA is handled by
-*expanding* K/V to one head per query head (kv-major: query head ``h``
-reads kv head ``h // G``).
+Head plans, chosen per (head count, tensor-parallel degree) by
+:func:`head_plan`; the degree is the active activation policy's
+``'model'`` size (``sharding/act.py``; 1, plan ``'shard'``, when unset):
+
+  'shard'  heads % tp == 0: heads as they are.
+  'pad'    pad query heads to the next tp multiple when that costs at
+           most 1.5x (qwen3 40 -> 48 at tp 16). ``attention_spec`` stores
+           the padded ``wq``/``wo``; ``attention_out`` masks the rows of
+           ``wo`` past the model's heads, so the padded heads add exactly
+           nothing; K/V are padded with zero heads to match.
+  'seq'    too few heads to pad (gemma3's 4 at tp 16): heads replicated,
+           the sequence dimension of the scores sharded instead —
+           :func:`kv_chunked_attention`, or :func:`banded_attention` for
+           causal sliding-window layers.
+
+GQA is handled by *expanding* K/V to one head per query head (kv-major:
+query head ``h`` reads kv head ``h // G``).
 
 The paged cache is one ``[num_pages, page_size, KV, hd]`` arena per
 layer and k/v, shared by all rows, plus a per-row block table ``[B, P]``
@@ -32,12 +44,14 @@ Two semantics differ from JAX and are handled here:
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.paged_attention import paged_decode_fused
+from repro_torch.sharding.act import constrain_seq_model, current_tp
 
 from .common import spec
 from .layers import head_rmsnorm, head_rmsnorm_spec, rope
@@ -46,32 +60,65 @@ NEG_INF = -2.0e38
 
 
 def attention_spec(cfg, dtype):
+    """Parameter spec. Under a ``'pad'`` head plan ``wq``/``wo`` (and
+    ``bq``) hold ``hp`` (tp-aligned) heads; the extra rows are masked at
+    apply time (:func:`attention_out`). The plan is read from the active
+    activation policy, so specs built for a mesh and for one card are
+    each self-consistent."""
     d, h, kv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                     cfg.resolved_head_dim)
+    plan, hp = head_plan(h)
+    hq = hp if plan == "pad" else h
     p = {
-        "wq": spec((d, h, hd), dtype),
-        "wk": spec((d, kv, hd), dtype),
-        "wv": spec((d, kv, hd), dtype),
-        "wo": spec((h, hd, d), dtype),
+        "wq": spec((d, hq, hd), ("embed", "heads", "head_dim"), dtype=dtype),
+        "wk": spec((d, kv, hd), ("embed", "kv_heads", "head_dim"),
+                   dtype=dtype),
+        "wv": spec((d, kv, hd), ("embed", "kv_heads", "head_dim"),
+                   dtype=dtype),
+        "wo": spec((hq, hd, d), ("heads", "head_dim", "embed"), dtype=dtype),
     }
     if cfg.qkv_bias:
-        p["bq"] = spec((h, hd), dtype, init="zeros")
-        p["bk"] = spec((kv, hd), dtype, init="zeros")
-        p["bv"] = spec((kv, hd), dtype, init="zeros")
+        p["bq"] = spec((hq, hd), ("heads", "head_dim"), dtype=dtype,
+                       init="zeros")
+        p["bk"] = spec((kv, hd), ("kv_heads", "head_dim"), dtype=dtype,
+                       init="zeros")
+        p["bv"] = spec((kv, hd), ("kv_heads", "head_dim"), dtype=dtype,
+                       init="zeros")
     if cfg.qk_norm:
         p["q_norm"] = head_rmsnorm_spec(hd)
         p["k_norm"] = head_rmsnorm_spec(hd)
     return p
 
 
-def expand_kv(kv: torch.Tensor, n_heads: int) -> torch.Tensor:
-    """[B,T,KV,hd] -> [B,T,H,hd]: one K/V head per query head."""
+# ---------------------------------------------------------------- planning
+def head_plan(n_heads: int, tp: Optional[int] = None) -> Tuple[str, int]:
+    """(plan, padded heads) for this head count under tp-way sharding."""
+    tp = tp if tp is not None else current_tp()
+    if tp <= 1 or n_heads % tp == 0:
+        return "shard", n_heads
+    padded = -(-n_heads // tp) * tp
+    if padded <= 1.5 * n_heads:
+        return "pad", padded
+    return "seq", n_heads
+
+
+def expand_kv(kv: torch.Tensor, n_heads: int, pad_to: int = 0
+              ) -> torch.Tensor:
+    """[B,T,KV,hd] -> [B,T,H(p),hd]: one K/V head per query head, then
+    zero heads up to ``pad_to``."""
     b, t, kvh, hd = kv.shape
     g = n_heads // kvh
-    if g == 1:
-        return kv
-    return kv[:, :, :, None, :].expand(b, t, kvh, g, hd).reshape(
-        b, t, kvh * g, hd)
+    out = kv if g == 1 else kv[:, :, :, None, :].expand(
+        b, t, kvh, g, hd).reshape(b, t, kvh * g, hd)
+    return pad_heads(out, pad_to)
+
+
+def pad_heads(q: torch.Tensor, pad_to: int) -> torch.Tensor:
+    """Zero heads appended on dim 2 up to ``pad_to``."""
+    h = q.shape[2]
+    if pad_to <= h:
+        return q
+    return F.pad(q, (0, 0, 0, pad_to - h))
 
 
 def _pick_chunk(s: int, target: int = 1024) -> int:
@@ -101,11 +148,15 @@ def qkv_project(p, cfg, x: torch.Tensor, positions: Optional[torch.Tensor]):
 
 
 def attention_out(p, y: torch.Tensor, n_heads: int) -> torch.Tensor:
-    """y [B,S,H,hd] -> [B,S,D]."""
-    if p["wo"].shape[0] != n_heads:
-        raise ValueError(f"wo has {p['wo'].shape[0]} heads, the model "
-                         f"{n_heads}: head padding has no use on one card")
-    return torch.einsum("bshk,hkd->bsd", y, p["wo"])
+    """y [B,S,Hq,hd] -> [B,S,D]. When the projection is head-padded, the
+    rows ``>= n_heads`` of ``wo`` are masked to zero, so the padded heads
+    contribute exactly nothing."""
+    wo = p["wo"]
+    hq = wo.shape[0]
+    if hq > n_heads:
+        mask = (torch.arange(hq, device=wo.device) < n_heads).to(wo.dtype)
+        wo = wo * mask[:, None, None]
+    return torch.einsum("bshk,hkd->bsd", y, wo)
 
 
 # ----------------------------------------------------- full-sequence paths
@@ -182,16 +233,86 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(q.dtype)
 
 
+def kv_chunked_attention(q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor, *, causal: bool,
+                         kv_chunk: int = 1024) -> torch.Tensor:
+    """Online softmax over kv chunks with the whole query resident — the
+    sequence dim stays intact, so an activation constraint can shard it
+    over the model axis (the ``'seq'`` plan). Rectangle work when causal.
+    q [B,S,H,hd]; k, v [B,T,H,hd] (expanded). Returns [B,S,H,hd]."""
+    b, s, h, hd = q.shape
+    t = k.shape[1]
+    ck = _pick_chunk(t, kv_chunk)
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    qs = constrain_seq_model(q * scale)
+    qpos = torch.arange(s, device=dev)
+    iota_k = torch.arange(ck, device=dev)
+    m = constrain_seq_model(torch.full((b, s, h), NEG_INF,
+                                       dtype=torch.float32, device=dev))
+    l = constrain_seq_model(torch.zeros((b, s, h), dtype=torch.float32,
+                                        device=dev))
+    acc = constrain_seq_model(torch.zeros((b, s, h, hd),
+                                          dtype=torch.float32, device=dev))
+    for j in range(t // ck):
+        kc = k[:, j * ck:(j + 1) * ck]
+        vc = v[:, j * ck:(j + 1) * ck]
+        sc = torch.einsum("bqhd,bchd->bqhc", qs, kc).float()
+        if causal:
+            ok = (j * ck + iota_k)[None, :] <= qpos[:, None]
+            sc = torch.where(ok[None, :, None, :], sc,
+                             torch.full_like(sc, NEG_INF))
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        p = torch.exp(sc - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = constrain_seq_model(l * alpha + p.sum(dim=-1))
+        pv = torch.einsum("bqhc,bchd->bqhd", p.to(v.dtype), vc)
+        acc = constrain_seq_model(acc * alpha[..., None] + pv.float())
+        m = constrain_seq_model(m_new)
+    return (acc / torch.clamp(l[..., None], min=1e-37)).to(q.dtype)
+
+
+def banded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     window: int) -> torch.Tensor:
+    """Exact causal sliding-window attention through a gathered [S, W]
+    band of K/V — O(S*W) work and memory, seq-shardable (local layers
+    under the ``'seq'`` plan). q, k, v [B,S,H,hd] (expanded)."""
+    b, s, h, hd = q.shape
+    w = min(window, s)
+    scale = 1.0 / math.sqrt(hd)
+    pos = torch.arange(s, device=q.device)
+    band = pos[:, None] - (w - 1) + torch.arange(w, device=q.device)[None]
+    valid = band >= 0                                         # [S, W]
+    band_c = band.clamp(0, s - 1)
+    kb = k[:, band_c]                                         # [B,S,W,H,hd]
+    vb = v[:, band_c]
+    qs = constrain_seq_model(q * scale)
+    sc = torch.einsum("bqhd,bqwhd->bqhw", qs, kb).float()
+    sc = torch.where(valid[None, :, None, :], sc,
+                     torch.full_like(sc, NEG_INF))
+    p = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bqhw,bqwhd->bqhd", p.to(v.dtype), vb)
+    return out.to(q.dtype)
+
+
 def full_attention(p, cfg, q: torch.Tensor, k: torch.Tensor,
                    v: torch.Tensor, *, causal: bool,
                    window: Optional[int]) -> torch.Tensor:
-    """Full-sequence attention, [B,S,H,hd] before ``wo``. On one card the
-    reference's head plan is ``"shard"``, so this is its
-    expand-then-:func:`blocked_attention` path (the ``"seq"`` plan's
-    kernels belong to tensor parallelism)."""
+    """Full-sequence attention, [B,S,Hq,hd] before ``wo``, on the path
+    of the head plan. ``q`` comes from the (possibly head-padded)
+    projection, so ``q.shape[2]`` is already tp-aligned under ``'pad'``."""
     h = cfg.num_heads
-    return blocked_attention(q, expand_kv(k, h), expand_kv(v, h),
-                             causal=causal, window=window)
+    plan, _ = head_plan(h)
+    hq = q.shape[2]
+    if plan in ("shard", "pad"):
+        return blocked_attention(q, expand_kv(k, h, pad_to=hq),
+                                 expand_kv(v, h, pad_to=hq),
+                                 causal=causal, window=window)
+    # 'seq' plan: replicated heads, sequence-sharded scores
+    ke, ve = expand_kv(k, h), expand_kv(v, h)
+    if window is not None and causal:
+        return banded_attention(q, ke, ve, window=window)
+    return kv_chunked_attention(q, ke, ve, causal=causal)
 
 
 # ------------------------------------------------------- contiguous writes
@@ -404,17 +525,18 @@ def chunk_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 def cached_decode_attention(p, cfg, q, k_cache, v_cache, cache_len, *,
                             window: Optional[int]) -> torch.Tensor:
-    h = cfg.num_heads
-    return decode_attention(q, expand_kv(k_cache, h), expand_kv(v_cache, h),
-                            cache_len, window=window)
+    h, hq = cfg.num_heads, q.shape[2]
+    return decode_attention(q, expand_kv(k_cache, h, pad_to=hq),
+                            expand_kv(v_cache, h, pad_to=hq), cache_len,
+                            window=window)
 
 
 def cached_chunk_attention(p, cfg, q, k_cache, v_cache, q_positions, *,
                            window: Optional[int]) -> torch.Tensor:
-    h = cfg.num_heads
-    return chunk_decode_attention(q, expand_kv(k_cache, h),
-                                  expand_kv(v_cache, h), q_positions,
-                                  window=window)
+    h, hq = cfg.num_heads, q.shape[2]
+    return chunk_decode_attention(q, expand_kv(k_cache, h, pad_to=hq),
+                                  expand_kv(v_cache, h, pad_to=hq),
+                                  q_positions, window=window)
 
 
 def paged_decode_attention(p, cfg, q, k_arena, v_arena, pages, cache_len, *,
@@ -443,3 +565,24 @@ def paged_chunk_attention(p, cfg, q, k_arena, v_arena, pages, q_positions, *,
     return cached_chunk_attention(p, cfg, q, gather_pages(k_arena, pages),
                                   gather_pages(v_arena, pages), q_positions,
                                   window=window)
+
+
+def naive_reference_attention(q, k, v, *, causal: bool,
+                              window: Optional[int] = None) -> torch.Tensor:
+    """O(S^2)-memory GQA oracle used only by tests. q [B,S,H,hd];
+    k, v [B,T,KV,hd]."""
+    b, s, h, hd = q.shape
+    t = k.shape[1]
+    ke, ve = expand_kv(k, h), expand_kv(v, h)
+    sc = torch.einsum("bqhd,bthd->bqht", q, ke).float() / math.sqrt(hd)
+    if causal:
+        qpos = torch.arange(s, device=q.device)[:, None]
+        kpos = torch.arange(t, device=q.device)[None, :]
+        ok = kpos <= qpos
+        if window is not None:
+            ok &= kpos > qpos - window
+        sc = torch.where(ok[None, :, None, :], sc,
+                         torch.full_like(sc, NEG_INF))
+    p = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bqht,bthd->bqhd", p.to(v.dtype), ve)
+    return out.to(q.dtype)

@@ -4,37 +4,61 @@
 Parameters are nested dicts of tensors with the reference's tree paths
 (``periods/layer_0/mixer/wq`` …, stacked over periods on a leading
 axis). A model first builds a *spec tree* of :class:`ArraySpec` — shape,
-dtype and initializer — from which :func:`init_params` draws weights on
-the target device from an explicit ``torch.Generator``. The rules are
-the reference's: ``zeros``/``ones`` leaves are constant, every other
-leaf is normal with std ``init_scale / sqrt(fan_in)`` where ``fan_in``
-is the leading dimension (the last one for vectors). The two packages'
-random streams differ, so parity tests carry the reference's weights
-across with :mod:`repro_torch.models.bridge` instead.
+dtype, initializer and **logical axis names** — from which, without
+materializing weights:
+
+  * :func:`init_params`  — weights drawn on the target device from an
+                           explicit ``torch.Generator``;
+  * :func:`shape_params` — ``meta`` tensors (no memory: the dry run);
+  * :func:`logical_tree` — logical axes per leaf (``sharding/rules.py``
+                           maps them onto the mesh).
+
+The draw rules are the reference's: ``zeros``/``ones`` leaves are
+constant, every other leaf is normal with std ``init_scale /
+sqrt(fan_in)`` where ``fan_in`` is the leading dimension (the last one
+for vectors). The two packages' random streams differ, so parity tests
+carry the reference's weights across with :mod:`repro_torch.models.bridge`
+instead.
+
+Logical axis vocabulary (see ``sharding/rules.py`` for the mesh mapping):
+  'batch' 'seq' 'embed' 'heads' 'kv_heads' 'head_dim' 'mlp' 'vocab'
+  'expert' 'layer' (stacked leading axis) 'conv' 'state' 'dt'
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Iterator, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 Tree = Dict[str, Any]
+Logical = Tuple[Optional[str], ...]
 
 
 @dataclasses.dataclass(frozen=True)
 class ArraySpec:
     shape: Tuple[int, ...]
     dtype: torch.dtype
+    logical: Logical
     init: str = "normal"      # normal | zeros | ones
     init_scale: float = 1.0
 
+    def __post_init__(self):
+        assert len(self.shape) == len(self.logical), (self.shape,
+                                                      self.logical)
 
-def spec(shape, dtype, init: str = "normal", scale: float = 1.0) -> ArraySpec:
-    return ArraySpec(tuple(int(s) for s in shape), dtype, init, scale)
+
+def spec(shape, logical, dtype=torch.bfloat16, init: str = "normal",
+         scale: float = 1.0) -> ArraySpec:
+    return ArraySpec(tuple(int(s) for s in shape), dtype, tuple(logical),
+                     init, scale)
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, ArraySpec)
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -66,10 +90,29 @@ def sorted_leaves(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
         yield prefix[:-1], tree
 
 
+def tree_map_specs(fn: Callable[[ArraySpec], Any], tree):
+    return tree_map(fn, tree)
+
+
+def shape_params(spec_tree):
+    """``meta`` tensors of each leaf's shape and dtype — zero bytes
+    allocated (the counterpart of ``jax.ShapeDtypeStruct``)."""
+    return tree_map_specs(
+        lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"),
+        spec_tree)
+
+
+def logical_tree(spec_tree):
+    return tree_map_specs(lambda s: s.logical, spec_tree)
+
+
 def stack_specs(tree, n: int):
-    """Add a leading axis of size ``n`` (one entry per period)."""
-    return tree_map(lambda s: dataclasses.replace(s, shape=(n,) + s.shape),
-                    tree)
+    """Add a leading ``'layer'`` axis of size ``n`` (one entry per
+    period)."""
+    return tree_map_specs(
+        lambda s: dataclasses.replace(s, shape=(n,) + s.shape,
+                                      logical=("layer",) + s.logical),
+        tree)
 
 
 def count_params(spec_tree) -> int:
@@ -112,3 +155,7 @@ def activation(name: str):
     if name == "relu2":              # squared relu (nemotron/minitron)
         return lambda x: torch.square(F.relu(x))
     raise ValueError(name)
+
+
+def cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return x.to(dtype) if x.dtype != dtype else x

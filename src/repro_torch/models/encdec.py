@@ -25,6 +25,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.sharding.act import constrain_batch
+
 from . import attention as attn
 from .common import init_params, stack_specs, tree_map
 from .layers import (embed, embedding_spec, lm_head_spec, mlp, mlp_spec,
@@ -87,7 +89,7 @@ class EncDecLM:
         """Frame embeddings [B,S,D] -> encoder states [B,S,D]
         (non-causal attention, then the encoder's final norm)."""
         cfg = self.cfg
-        x = embeds.to(cfg.dtype)
+        x = constrain_batch(embeds.to(cfg.dtype))
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         for i in range(cfg.encoder_layers):
@@ -177,7 +179,7 @@ class EncDecLM:
         enc_out = self.encode(params, batch["embeds"])
         tokens = batch["tokens"]
         b, ld = tokens.shape
-        x = embed(params["embed"], tokens).to(cfg.dtype)
+        x = constrain_batch(embed(params["embed"], tokens).to(cfg.dtype))
         positions = torch.arange(ld, device=x.device)[None].expand(b, ld)
         for i in range(cfg.num_layers):
             p = tree_map(lambda a: a[i], params["decoder"]["periods"])
@@ -247,7 +249,8 @@ class EncDecLM:
         1``)."""
         cfg = self.cfg
         cache_len = cache["len"]
-        x = embed(params["embed"], token[:, None]).to(cfg.dtype)
+        x = constrain_batch(
+            embed(params["embed"], token[:, None]).to(cfg.dtype))
         cl = torch.as_tensor(cache_len, device=x.device)
         if cl.dim() == 1:
             positions = cl[:, None].to(torch.int32)

@@ -11,7 +11,7 @@ from .common import activation, spec
 
 # ------------------------------------------------------------------- norms
 def rmsnorm_spec(d: int):
-    return {"scale": spec((d,), torch.float32, init="ones")}
+    return {"scale": spec((d,), ("embed",), dtype=torch.float32, init="ones")}
 
 
 def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -21,8 +21,9 @@ def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def head_rmsnorm_spec(hd: int):
-    return {"scale": spec((hd,), torch.float32, init="ones")}
+def head_rmsnorm_spec(hd: int, axis: str = "head_dim"):
+    return {"scale": spec((hd,), (axis,), dtype=torch.float32,
+                          init="ones")}
 
 
 def head_rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -49,7 +50,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 
 # -------------------------------------------------------------- embeddings
 def embedding_spec(vocab: int, d: int, dtype):
-    return {"tokens": spec((vocab, d), dtype)}
+    return {"tokens": spec((vocab, d), ("vocab", "embed"), dtype=dtype)}
 
 
 def embed(p, token_ids: torch.Tensor) -> torch.Tensor:
@@ -76,7 +77,7 @@ def unembed(p_embed, p_head, x: torch.Tensor, *, tie: bool) -> torch.Tensor:
 
 
 def lm_head_spec(d: int, vocab: int, dtype):
-    return {"kernel": spec((d, vocab), dtype)}
+    return {"kernel": spec((d, vocab), ("embed", "vocab"), dtype=dtype)}
 
 
 # --------------------------------------------------------------------- ffn
@@ -85,9 +86,11 @@ GATED = ("swiglu", "geglu")
 
 def mlp_spec(d: int, f: int, act: str, dtype):
     if act in GATED:
-        return {"gate": spec((d, f), dtype), "up": spec((d, f), dtype),
-                "down": spec((f, d), dtype)}
-    return {"in": spec((d, f), dtype), "out": spec((f, d), dtype)}
+        return {"gate": spec((d, f), ("embed", "mlp"), dtype=dtype),
+                "up": spec((d, f), ("embed", "mlp"), dtype=dtype),
+                "down": spec((f, d), ("mlp", "embed"), dtype=dtype)}
+    return {"in": spec((d, f), ("embed", "mlp"), dtype=dtype),
+            "out": spec((f, d), ("mlp", "embed"), dtype=dtype)}
 
 
 def mlp(p, x: torch.Tensor, act: str) -> torch.Tensor:

@@ -37,6 +37,8 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.sharding.act import constrain_batch
+
 from . import attention as attn
 from . import blocks
 from .common import init_params, stack_specs, tree_map
@@ -171,7 +173,7 @@ class LM:
         x = embed(params["embed"], tokens).to(self.cfg.dtype)
         if self.cfg.scale_embeddings:
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype)
-        return x
+        return constrain_batch(x)
 
     def _embed_in(self, params: Tree, batch: Dict[str, torch.Tensor]
                   ) -> torch.Tensor:
@@ -179,7 +181,7 @@ class LM:
         frontend's precomputed ``batch["embeds"]``."""
         if self.cfg.frontend is None:
             return self._embed(params, batch["tokens"])
-        return batch["embeds"].to(self.cfg.dtype)
+        return constrain_batch(batch["embeds"].to(self.cfg.dtype))
 
     def _unembed(self, params: Tree, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.frontend is None and self.cfg.tie_embeddings:
@@ -426,6 +428,7 @@ class LM:
             x = token_or_embed.to(cfg.dtype)
             if x.dim() == 2:
                 x = x[:, None, :]
+            x = constrain_batch(x)
         for p, c, kind, use_moe in self._layers(params, cache):
             x, _ = blocks.block_decode(p, x, c, cache_len, cfg, kind,
                                        use_moe, pages, attn_impl=attn_impl,

@@ -38,15 +38,17 @@ def _dims(cfg):
 def mamba_spec(cfg, dtype):
     d, di, n, cw, dtr = _dims(cfg)
     return {
-        "in_proj": spec((d, 2 * di), dtype),
-        "conv_w": spec((cw, di), dtype),
-        "conv_b": spec((di,), dtype, init="zeros"),
-        "x_proj": spec((di, dtr + 2 * n), dtype),
-        "dt_proj": spec((dtr, di), dtype),
-        "dt_bias": spec((di,), torch.float32, init="zeros"),
-        "A_log": spec((di, n), torch.float32, init="ones"),
-        "D": spec((di,), torch.float32, init="ones"),
-        "out_proj": spec((di, d), dtype),
+        "in_proj": spec((d, 2 * di), ("embed", "mlp"), dtype=dtype),
+        "conv_w": spec((cw, di), ("conv", "mlp"), dtype=dtype),
+        "conv_b": spec((di,), ("mlp",), dtype=dtype, init="zeros"),
+        "x_proj": spec((di, dtr + 2 * n), ("mlp", "dt"), dtype=dtype),
+        "dt_proj": spec((dtr, di), ("dt", "mlp"), dtype=dtype),
+        "dt_bias": spec((di,), ("mlp",), dtype=torch.float32,
+                        init="zeros"),
+        "A_log": spec((di, n), ("mlp", "state"), dtype=torch.float32,
+                      init="ones"),
+        "D": spec((di,), ("mlp",), dtype=torch.float32, init="ones"),
+        "out_proj": spec((di, d), ("mlp", "embed"), dtype=dtype),
     }
 
 

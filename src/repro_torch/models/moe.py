@@ -35,19 +35,21 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.act import constrain_expert_model
+
 from .common import spec
 
 
 def moe_spec(cfg, dtype):
     d, f = cfg.d_model, cfg.d_ff
     e = cfg.moe.num_experts
-    p = {"router": spec((d, e), torch.float32),
-         "down": spec((e, f, d), dtype)}
+    p = {"router": spec((d, e), ("embed", "expert"), dtype=torch.float32),
+         "down": spec((e, f, d), ("expert", "mlp", "embed"), dtype=dtype)}
     if cfg.activation == "swiglu":
-        p["gate"] = spec((e, d, f), dtype)
-        p["up"] = spec((e, d, f), dtype)
+        p["gate"] = spec((e, d, f), ("expert", "embed", "mlp"), dtype=dtype)
+        p["up"] = spec((e, d, f), ("expert", "embed", "mlp"), dtype=dtype)
     else:
-        p["in"] = spec((e, d, f), dtype)
+        p["in"] = spec((e, d, f), ("expert", "embed", "mlp"), dtype=dtype)
     return p
 
 
@@ -164,8 +166,9 @@ def moe_ffn_einsum(p, x: torch.Tensor, cfg
     cap = capacity(s, mo.num_experts, mo.top_k, mo.capacity_factor)
     dispatch, combine, aux = route(x, p["router"], mo.num_experts,
                                    mo.top_k, cap)
-    xin = torch.einsum("bsec,bsd->ebcd", dispatch.to(x.dtype), x)
-    out = _expert_ffn(p, xin, cfg)
+    xin = constrain_expert_model(
+        torch.einsum("bsec,bsd->ebcd", dispatch.to(x.dtype), x))
+    out = constrain_expert_model(_expert_ffn(p, xin, cfg))
     y = torch.einsum("ebcd,bsec->bsd", out, combine.to(x.dtype))
     return y.to(x.dtype), aux
 
@@ -185,7 +188,8 @@ def moe_ffn_gather(p, x: torch.Tensor, cfg
     x_pad = torch.cat([x, x.new_zeros(b, 1, d)], dim=1)        # [B,S+1,D]
     rows = torch.arange(b, device=x.device)
     xin = x_pad[rows[:, None, None], token_for_slot.long()]    # [B,E,C,D]
-    out = _expert_ffn(p, xin.permute(1, 0, 2, 3), cfg)         # [E,B,C,D]
+    xin = constrain_expert_model(xin.permute(1, 0, 2, 3))      # [E,B,C,D]
+    out = constrain_expert_model(_expert_ffn(p, xin, cfg))     # [E,B,C,D]
     # a dropped choice (slot C) reads slot 0 with gate 0
     slot = torch.where(slot_for_token < cap, slot_for_token,
                        torch.zeros_like(slot_for_token)).long()

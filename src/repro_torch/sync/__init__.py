@@ -1,13 +1,17 @@
 """Backend-unified synchronization API (counterpart of ``repro.sync``):
 protocols + plan types, backends (host / cuda / ref), the
 ``SyncLibrary`` factory and planner with the cached host
-classification (``classified_host``, ``SyncLibrary.for_host``), and
-the shared windowed planner."""
+classification (``classified_host``, ``SyncLibrary.for_host``), the
+shared windowed planner, and the backend registry (``register_backend``,
+``get_backend``, ``available_backends``)."""
 
 from repro_torch.sync.backends import (  # noqa: F401
     HostBackend,
     KernelBackend,
     SyncBackend,
+    available_backends,
+    get_backend,
+    register_backend,
 )
 from repro_torch.sync.library import (  # noqa: F401
     HOST_NOMINAL,

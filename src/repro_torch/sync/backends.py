@@ -11,9 +11,11 @@
 
 Live objects always run on the host control plane — a planning kernel
 is not a resident lock — so every backend builds them the same way.
-Each ``SyncLibrary`` owns its own backend objects (no process-wide
-registry): a backend keeps the planning window whose one-time overflow
-warning it reports.
+Each ``SyncLibrary`` owns its own ``host``/``cuda``/``ref`` objects (a
+backend keeps the planning window whose one-time overflow warning it
+reports); a name it does not own resolves through the module registry
+(:func:`register_backend`, :func:`get_backend`), where a user plugs in a
+backend of their own.
 """
 
 from __future__ import annotations
@@ -351,3 +353,34 @@ class HostBackend(SyncBackend):
 def make_backends() -> Dict[str, SyncBackend]:
     return {"host": HostBackend(), "cuda": KernelBackend("cuda", "cuda"),
             "ref": KernelBackend("ref", "cpu")}
+
+
+# ---------------------------------------------------------------------------
+# Registry.
+# ---------------------------------------------------------------------------
+
+_REGISTRY: Dict[str, SyncBackend] = {}
+
+
+def register_backend(name: str, backend: SyncBackend) -> SyncBackend:
+    """Register (or replace) a backend under ``name``."""
+    backend.name = name
+    _REGISTRY[name] = backend
+    return backend
+
+
+def get_backend(name: str) -> SyncBackend:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown sync backend {name!r}; available: "
+            f"{', '.join(available_backends())}") from None
+
+
+def available_backends() -> Tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+for _name, _backend in make_backends().items():
+    register_backend(_name, _backend)

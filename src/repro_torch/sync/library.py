@@ -40,7 +40,7 @@ from repro_torch.core.abstraction import (
 
 from repro_torch.core.device import resolve_device
 
-from .backends import SyncBackend, make_backends
+from .backends import SyncBackend, get_backend, make_backends
 from .protocols import (
     BarrierPlan,
     BoundedMutexPlan,
@@ -151,12 +151,12 @@ class SyncLibrary:
         return self.backend or select_backend(self.machine)
 
     def _backend(self, name: Optional[str] = None) -> SyncBackend:
+        """This library's own ``host``/``cuda``/``ref`` backend, else the
+        one registered under ``name`` (``KeyError`` when none is)."""
         name = name or self.backend_name()
-        try:
+        if name in self._backends:
             return self._backends[name]
-        except KeyError:
-            raise KeyError(f"unknown sync backend {name!r}; available: "
-                           f"{', '.join(sorted(self._backends))}") from None
+        return get_backend(name)
 
     def planning_backend_name(self, device=None) -> str:
         """Backend for hot-loop planning: the pinned/selected backend if

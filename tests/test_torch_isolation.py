@@ -60,7 +60,10 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
                 "repro_torch.core.hostbench_probe",
                 "repro_torch.benchmarks.membench",
                 "repro_torch.examples.sync_primitives",
-                "repro_torch.examples.quickstart"):
+                "repro_torch.examples.quickstart",
+                "repro_torch.sharding.rules", "repro_torch.sharding.act",
+                "repro_torch.launch.mesh", "repro_torch.core.device_barrier",
+                "repro_torch.train.elastic"):
         assert mod in names.split(), mod
 
 
@@ -146,6 +149,27 @@ def test_training_slice_modules_load_neither_jax_nor_repro(module):
 def test_paper_slice_modules_load_neither_jax_nor_repro(module):
     """The simulators, the host probe, the paper-table benchmarks and
     the two example twins, each imported alone in a fresh interpreter,
+    leave ``jax`` and ``repro`` out of ``sys.modules``."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.sharding", "repro_torch.sharding.rules",
+    "repro_torch.sharding.act", "repro_torch.launch.mesh",
+    "repro_torch.core.device_barrier", "repro_torch.train.elastic",
+    "repro_torch.train.compression", "repro_torch.models.attention"])
+def test_mesh_slice_modules_load_neither_jax_nor_repro(module):
+    """The sharding rules and activation policy, the mesh builders and
+    world launcher, the device barrier and all-reduces, elastic shapes
+    and the head plans, each imported alone in a fresh interpreter,
     leave ``jax`` and ``repro`` out of ``sys.modules``."""
     code = (
         "import importlib, sys\n"

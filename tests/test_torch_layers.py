@@ -119,10 +119,14 @@ def test_init_params_rules():
     init_scale / sqrt(fan_in) with fan_in the leading dimension (the
     last one for vectors) — the reference's rules, drawn from an
     explicit generator."""
-    spec = {"w": tcommon.spec((400, 300), torch.float32),
-            "v": tcommon.spec((900,), torch.float32, scale=2.0),
-            "z": tcommon.spec((3, 4), torch.float32, init="zeros"),
-            "o": tcommon.spec((5,), torch.bfloat16, init="ones")}
+    spec = {"w": tcommon.spec((400, 300), ("embed", "mlp"),
+                              dtype=torch.float32),
+            "v": tcommon.spec((900,), ("embed",), dtype=torch.float32,
+                              scale=2.0),
+            "z": tcommon.spec((3, 4), ("embed", "mlp"), dtype=torch.float32,
+                              init="zeros"),
+            "o": tcommon.spec((5,), ("embed",), dtype=torch.bfloat16,
+                              init="ones")}
     p = tcommon.init_params(spec, torch.Generator().manual_seed(0), "cpu")
     assert float(p["w"].std()) == pytest.approx(1 / np.sqrt(400), rel=0.02)
     assert float(p["v"].std()) == pytest.approx(2 / np.sqrt(900), rel=0.06)

@@ -89,12 +89,13 @@ def test_unported_families_raise():
     the JAX package in tests/test_torch_ssm_families.py); since the
     encoder-decoder slice so do whisper-small and internvl2-76b. What
     still refuses them is what the reference refuses them with: the slot
-    engine and the serving launcher (token LMs only); and the mesh
-    all-reduce of compressed gradients needs several devices."""
+    engine and the serving launcher (token LMs only). (The mesh
+    all-reduce of compressed gradients refused here too before the mesh
+    slice; it now computes over a ``DeviceMesh``, held to the JAX
+    package in tests/test_torch_mesh_world.py.)"""
     from repro_torch.launch import serve
     from repro_torch.models.encdec import EncDecLM
     from repro_torch.serve.engine import SlotServeEngine
-    from repro_torch.train.compression import compressed_allreduce_int8
     cfg = get_arch("qwen3-14b").reduced()
     spec = build_model(dataclasses.replace(cfg, layer_pattern=("mamba",),
                                            ssm=SSMConfig())).spec_tree()
@@ -111,8 +112,6 @@ def test_unported_families_raise():
         with pytest.raises(SystemExit, match="token-LM archs"):
             serve.main(["--arch", name, "--smoke", "--device", "cpu",
                         "--requests", "1"])
-    with pytest.raises(NotImplementedError, match="needs several devices"):
-        compressed_allreduce_int8(torch.zeros(8))
 
 
 def _caches(jm, tm, pages, ps, num_pages):

@@ -116,12 +116,22 @@ def test_adapter_matches_reference_adapter():
 
 
 def test_adapter_rejects_padded_heads():
-    q = torch.zeros(1, 1, 6, 8)
-    arena = torch.zeros(2, 4, 2, 8)
-    with pytest.raises(ValueError, match="head padding"):
-        tpa.paged_decode_fused(q, arena, arena,
-                               torch.zeros(1, 1, dtype=torch.int32),
-                               torch.ones(1, dtype=torch.int32), 4)
+    """Padded query heads (the ``'pad'`` head plan: 6 for a 4-head
+    model) no longer raise: the model's 4 heads go to the kernel, the
+    padded 2 come back as zeros, as the reference's adapter does (held
+    to it in tests/test_torch_head_plans.py)."""
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.standard_normal((1, 1, 6, 8)).astype(
+        np.float32))
+    arena = torch.from_numpy(rng.standard_normal((2, 4, 2, 8)).astype(
+        np.float32))
+    args = (arena, arena, torch.zeros(1, 1, dtype=torch.int32),
+            torch.ones(1, dtype=torch.int32), 4)
+    got = tpa.paged_decode_fused(q, *args)
+    assert tuple(got.shape) == (1, 1, 6, 8)
+    assert torch.equal(got[:, :, :4],
+                       tpa.paged_decode_fused(q[:, :, :4], *args))
+    assert not got[:, :, 4:].any()
 
 
 @pytest.mark.parametrize("window", [None, 5, 12])

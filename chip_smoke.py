@@ -4,7 +4,7 @@ encoder-decoder and stub-frontend families, training, the sync
 library's plans with the paper's kernel benchmarks, and the paper's
 simulators and table benchmarks.
 
-    python3 chip_smoke.py            # phases 1-4 and 6-15, one card
+    python3 chip_smoke.py            # phases 1-4 and 6-17, one card
 
 Run from the root of a checkout; it needs ``src/repro_torch`` beside it
 and a CUDA card, and exits non-zero without printing a result otherwise.
@@ -180,11 +180,20 @@ JSON line with its seconds:
              admission plan on cuda) and the quickstart's 10 training
              steps (the first batch's loss falls); launch counters prove
              the semaphore, lock and barrier kernels carried the phase
+ 16 mesh     the head plans at tp 16 on one card ('pad' on the main
+             path, the 'seq' forward), the collectives on an NCCL world
+             of 1 and a gloo world of 4
+ 17 dryrun   the dry run: six production cells traced at once in
+             subprocesses and the roofline section (keys, flops, wire
+             bytes, argument bytes against the specs); phase 14's step
+             traced against FlopCounterMode on the card, its bound
+             beside phase 14's ms; the traced programs run on an NCCL
+             world of 1 against the plain steps
 Then the run's total seconds, one JSON line naming every kernel with its
 launches (from phase 4 for the serving kernels, from phase 6 for the
-others; each path's, phases 8-15 among them, in ``launches_by_path``),
-times and bound, and last the device line. Every failed check exits non-zero before the
-last line.
+others; each path's, phases 8-17 among them, in ``launches_by_path``),
+times and bound, and last the device line. Every failed check exits
+non-zero before the last line.
 """
 
 from __future__ import annotations
@@ -200,9 +209,10 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM published peaks (NVIDIA data sheet; dense, 700 W).
-MEM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
+# H100 SXM float32 peak outside the tensor cores (NVIDIA data sheet;
+# dense, 700 W); the memory rate and the bf16 peak are the roofline
+# model's (analysis/roofline.py), which the dry run uses too
+FP32_OPS_PER_S = 67e12
 
 # Full-width main-path settings (phase 4); the kernel checks of phase 2
 # use the shapes these settings give the kernels.
@@ -354,8 +364,10 @@ def host_ms(fn, reps: int = 20, sync=None) -> float:
 
 
 def bound_ms(nbytes: float, ops: float, dtype: str):
-    t_bytes = nbytes / MEM_BYTES_PER_S
-    t_ops = ops / PEAK_OPS_PER_S[dtype]
+    from repro_torch.analysis.roofline import HBM_BW, PEAK_FLOPS
+    peak = {"float32": FP32_OPS_PER_S, "bfloat16": PEAK_FLOPS}[dtype]
+    t_bytes = nbytes / HBM_BW
+    t_ops = ops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -3158,6 +3170,7 @@ def phase_train(out):
     out["launches_train"] = launches
     steady = sorted(first["step_seconds"][1:])
     step_s = steady[len(steady) // 2]
+    out["train_ms_per_step"] = 1e3 * step_s
     return {"argv": TRAIN_FULL, "losses": losses,
             "resumed_losses": again["losses"],
             "step_seconds": first["step_seconds"],
@@ -4245,6 +4258,432 @@ def phase_mesh(out):
                                 "collectives": time.perf_counter() - t2}}
 
 
+# ------------------------------------------------------ phase 17: dryrun
+#: 17a: the production-mesh cells (arch, shape, mesh), traced by
+#: ``python -m repro_torch.launch.dryrun`` in subprocesses started
+#: together (one process each: the fake process group stays out of this
+#: one); the main path's architecture in decode and train, a train cell
+#: per family that trains here, the MoE's prefill, the encoder-decoder's
+#: decode, and the FSDP + factored-optimizer + microbatch cell
+DRYRUN_CELLS = (("qwen3-14b", "decode_32k", "single"),
+                ("qwen3-14b", "train_4k", "single"),
+                ("gemma3-1b", "train_4k", "single"),
+                ("olmoe-1b-7b", "prefill_32k", "single"),
+                ("whisper-small", "decode_32k", "single"),
+                ("qwen1.5-110b", "train_4k", "multi"))
+DRYRUN_OUT = os.path.join(ROOT, "build", "dryrun_torch")
+DRYRUN_TIMEOUT = 600
+#: the keys of the reference's dry-run record (repro.launch.dryrun)
+DRYRUN_KEYS = (
+    "arch", "shape", "mesh", "chips", "flops_per_device",
+    "bytes_per_device", "collective_wire_bytes", "collectives",
+    "model_flops_total", "memory_per_device", "t_compute", "t_memory",
+    "t_collective", "bottleneck", "useful_flops_ratio", "mfu_bound",
+    "rules", "lower_s", "compile_s", "params_total", "params_active",
+    "hlo_bytes", "xla_cost_flops_per_device_body_once",
+    "xla_cost_bytes_per_device_body_once", "dot_flops_per_device",
+    "elementwise_flops_per_device", "hbm_bytes_upper_per_device")
+#: the card's memory, against which each cell's per-device bytes print
+CARD_BYTES = 80e9
+#: 17b: phase 14's step traced on a fake world of 1; its dot flops
+#: within this share of FlopCounterMode's count of one real step
+DRYRUN_FLOP_TOL = 0.01
+#: 17c: the traced program run for real, float32, DTensor parameters on
+#: a (1, 1) mesh: reduced gemma3-1b train (batch 4 x 32) and reduced
+#: qwen3-14b decode (4 rows, a cache of 64), held to the plain step
+DRYRUN_PARITY = dict(train_batch=4, train_seq=32, decode_rows=4,
+                     decode_len=64, seed=19, tol=1e-4)
+
+
+def _entry_size(entry, sizes):
+    axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+    return math.prod(sizes[a] for a in axes)
+
+
+def _spec_bytes(shape, dtype, spec, sizes):
+    import torch
+    n = math.prod(-(-d // _entry_size(e, sizes))
+                  for d, e in zip(shape, tuple(spec) + (None,) * len(shape)))
+    return n * torch.empty((), dtype=dtype).element_size()
+
+
+def dryrun_argument_bytes(arch, shape_name, multi):
+    """The phase's own sum of a cell's argument bytes per device: each
+    input's shape over its spec's mesh axes (rank 0's shard), from the
+    specs and the sharding rules. An encoder-decoder's decode step reads
+    neither the encoder nor the decoder's cross K/V projections (the
+    cache holds their product), and ``jax.jit`` drops what a step never
+    reads, so those leaves are left out, as the reference leaves them."""
+    import torch
+    from repro_torch.configs import ALL_SHAPES, get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import PRODUCTION, PRODUCTION_MULTI_POD
+    from repro_torch.models import (batch_specs, build_model, cache_specs,
+                                    decode_token_spec)
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.sharding import rules as shr
+    from repro_torch.sharding.act import MeshShape, activation_sharding
+    sizes = dict(PRODUCTION_MULTI_POD if multi else PRODUCTION)
+    mesh = MeshShape(sizes)
+    cfg, shape = get_arch(arch), ALL_SHAPES[shape_name]
+    model = build_model(cfg)
+    rules = dryrun.pick_rules(cfg, shape, mesh)
+    batch_axes = tuple(a for a in ("pod", "data") if a in sizes)
+    with activation_sharding(mesh, batch_axes):
+        spec_tree = model.spec_tree()
+    pspecs = dict(tree_leaves(shr.params_pspecs(spec_tree, rules, mesh)))
+    unread = ()
+    if cfg.is_encdec and shape.mode == "decode":
+        unread = ("encoder/",) + tuple(f"/cross_attn/{w}" for w in
+                                       ("wk", "wv", "bk", "bv"))
+    total = 0
+    for path, s in tree_leaves(spec_tree):
+        if not any(u in path if u.startswith("/") else path.startswith(u)
+                   for u in unread):
+            total += _spec_bytes(s.shape, s.dtype, pspecs[path], sizes)
+    if shape.mode == "train":
+        ocfg = dryrun.pick_opt_cfg(cfg)
+        mdt = getattr(torch, ocfg.momentum_dtype)
+        total += 4                                   # the step count
+        for path, s in tree_leaves(spec_tree):
+            spec = pspecs[path]
+            total += _spec_bytes(s.shape, mdt, spec, sizes)
+            if dryrun.opt._is_factored(ocfg, s.shape):
+                total += _spec_bytes(s.shape[:-1], torch.float32,
+                                     spec[:-1], sizes)
+                total += _spec_bytes(s.shape[:-2] + s.shape[-1:],
+                                     torch.float32,
+                                     tuple(spec[:-2]) + (spec[-1],), sizes)
+            else:
+                total += _spec_bytes(s.shape, torch.float32, spec, sizes)
+    if shape.mode in ("train", "prefill"):
+        for _, t in tree_leaves(batch_specs(cfg, shape)):
+            total += _spec_bytes(t.shape, t.dtype, shr.batch_pspec(
+                rules, mesh, t.dim(), seq_axis=1 if t.dim() >= 2 else None,
+                batch_size=t.shape[0]), sizes)
+    else:
+        cache = cache_specs(cfg, shape, model)
+        cspecs = dict(tree_leaves(shr.cache_pspecs(cache, rules, mesh, cfg)))
+        for path, t in tree_leaves(cache):
+            total += _spec_bytes(t.shape, t.dtype, cspecs[path], sizes)
+        tok = decode_token_spec(cfg, shape)
+        total += _spec_bytes(tok.shape, tok.dtype, shr.batch_pspec(
+            rules, mesh, tok.dim(), batch_size=tok.shape[0]), sizes)
+    return total
+
+
+def _python_env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(ROOT, "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    env["OMP_NUM_THREADS"] = "1"
+    return env
+
+
+def dryrun_cells(cells=DRYRUN_CELLS, out_dir=DRYRUN_OUT):
+    """17a's core: trace ``cells`` with the dry run's CLI, one subprocess
+    each, all started together; then render their records with ``run
+    --section roofline``. Returns (records by cell, table rows, the
+    cells' trace seconds, wall seconds)."""
+    import shutil
+    shutil.rmtree(out_dir, ignore_errors=True)
+    env = _python_env()
+    t0 = time.perf_counter()
+    procs = {}
+    for arch, shape, mesh in cells:
+        procs[(arch, shape, mesh)] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--out", out_dir],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+    logs = {}
+    try:
+        for cell, p in procs.items():
+            left = DRYRUN_TIMEOUT - (time.perf_counter() - t0)
+            logs[cell] = p.communicate(timeout=max(left, 1.0))[0]
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    failed = [c for c, p in procs.items() if p.returncode != 0]
+    check(not failed, "dryrun cells failed: " + "\n".join(
+        f"{c}: exit {procs[c].returncode}\n{logs.get(c, '')[-2000:]}"
+        for c in failed))
+    recs = {}
+    for arch, shape, mesh in cells:
+        name = "2x16x16" if mesh == "multi" else "16x16"
+        with open(os.path.join(out_dir, f"{arch}__{shape}__{name}.json")) as f:
+            recs[(arch, shape, mesh)] = json.load(f)
+    rep = subprocess.run(
+        [sys.executable, "-m", "repro_torch.benchmarks.run", "--section",
+         "roofline"], cwd=ROOT, env=dict(env, DRYRUN_ART=out_dir),
+        capture_output=True, text=True, timeout=120)
+    check(rep.returncode == 0, f"run --section roofline: exit "
+          f"{rep.returncode}\n{rep.stderr[-2000:]}")
+    rows = [r for r in rep.stdout.splitlines() if r.startswith("roofline")]
+    check(len(rows) == len(cells) + 1 + 3, f"roofline section: {len(rows)} "
+          f"rows for {len(cells)} cells")
+    return recs, rows, wall
+
+
+def dryrun_cell_line(rec, own_args):
+    mem = rec["memory_per_device"]
+    per_dev = (mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+               + mem["output_size_in_bytes"] - mem["alias_size_in_bytes"])
+    return {"flops_per_device": rec["flops_per_device"],
+            "dot_flops_per_device": rec["dot_flops_per_device"],
+            "bytes_per_device": rec["bytes_per_device"],
+            "hbm_bytes_upper_per_device": rec["hbm_bytes_upper_per_device"],
+            "collective_wire_bytes": rec["collective_wire_bytes"],
+            "collective_counts": {k: c["count"] for k, c in
+                                  rec["collectives"].items() if c["count"]},
+            "t_compute": rec["t_compute"], "t_memory": rec["t_memory"],
+            "t_collective": rec["t_collective"],
+            "bottleneck": rec["bottleneck"],
+            "step_time_lower_bound": max(rec["t_compute"], rec["t_memory"],
+                                         rec["t_collective"]),
+            "mfu_bound": rec["mfu_bound"],
+            "useful_flops_ratio": rec["useful_flops_ratio"],
+            "memory_per_device": mem,
+            "bytes_per_device_total": per_dev,
+            "share_of_card": per_dev / CARD_BYTES,
+            "argument_bytes_own_sum": own_args,
+            "rules": rec["rules"], "trace_s": rec["lower_s"]}
+
+
+TRACE_17B = r"""
+import dataclasses, json, sys
+from repro_torch.configs import ALL_SHAPES
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_mesh
+batch, seq = int(sys.argv[1]), int(sys.argv[2])
+shape = dataclasses.replace(ALL_SHAPES["train_4k"], name="phase14",
+                            global_batch=batch, seq_len=seq)
+dryrun.ALL_SHAPES["phase14"] = shape
+with dryrun.fake_world(1):
+    rec = dryrun.run_cell(sys.argv[3], "phase14", multi_pod=False,
+                          mesh=make_mesh((1, 1), ("data", "model")))
+print("RECORD:" + json.dumps(rec))
+"""
+
+
+def trace_one_card(arch, batch, seq, microbatches):
+    """17b's trace: ``arch``'s train step at ``batch`` x ``seq`` with
+    ``microbatches`` (``REPRO_NMB``) on a fake world of 1, a (1, 1)
+    mesh, in a subprocess. Returns the record."""
+    env = dict(_python_env(), REPRO_NMB=str(microbatches))
+    p = subprocess.run([sys.executable, "-c", TRACE_17B, str(batch),
+                        str(seq), arch], cwd=ROOT, env=env,
+                       capture_output=True, text=True,
+                       timeout=DRYRUN_TIMEOUT)
+    check(p.returncode == 0, f"17b trace: exit {p.returncode}\n"
+          f"{p.stderr[-3000:]}")
+    line = [l for l in p.stdout.splitlines() if l.startswith("RECORD:")]
+    return json.loads(line[0][len("RECORD:"):])
+
+
+def counted_train_flops(arch, batch, seq, microbatches, device):
+    """``FlopCounterMode``'s count of one real train step as the port's
+    launch/train.py builds it (remat, ``microbatches``, the default
+    AdamW), on ``device`` from seed 0."""
+    import dataclasses
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import ALL_SHAPES, get_arch
+    from repro_torch.models import build_model, make_batch
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_loop import make_train_step
+    cfg = get_arch(arch)
+    model = build_model(cfg)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = model.init(gen, device)
+    ocfg = opt.AdamWConfig()
+    state = opt.init(ocfg, params)
+    shape = dataclasses.replace(ALL_SHAPES["train_4k"], global_batch=batch,
+                                seq_len=seq)
+    step = make_train_step(model, ocfg, num_microbatches=microbatches,
+                           remat=True)
+    b = make_batch(cfg, shape, gen)
+    with FlopCounterMode(display=False) as fc:
+        step(params, state, b)
+    del params, state
+    return fc.get_total_flops()
+
+
+def sharded_parity(device, c=DRYRUN_PARITY):
+    """17c's core, in a running world of 1: reduced gemma3-1b's train
+    step and reduced qwen3-14b's decode step (float32), once with
+    ``DTensor`` inputs placed by the dry run's code on a (1, 1) mesh and
+    once plain, from the same weights; max |difference| over max(1, max
+    |plain|) for the train step's loss and parameters and the decode
+    step's logits and cache."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import ALL_SHAPES, get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model, make_batch
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.sharding import rules as shr
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_loop import make_train_step
+    mesh = make_mesh((1, 1), ("data", "model"))
+    gen = torch.Generator(device=device).manual_seed(c["seed"])
+
+    def worst(got, want):
+        got, want = dict(tree_leaves(got)), dict(tree_leaves(want))
+        scale = max([1.0] + [float(w.float().abs().max()) for w in
+                             want.values() if w.numel()])
+        err = max(float((got[p].full_tensor() if hasattr(got[p],
+                         "full_tensor") else got[p]).float().sub(
+            w.float()).abs().max()) if w.numel() else 0.0
+            for p, w in want.items())
+        return err / scale
+
+    cfg = get_arch("gemma3-1b").reduced()
+    shape = dataclasses.replace(ALL_SHAPES["train_4k"],
+                                global_batch=c["train_batch"],
+                                seq_len=c["train_seq"])
+    model = build_model(cfg)
+    params = model.init(gen, device)
+    batch = make_batch(cfg, shape, gen)
+    ocfg = dryrun.pick_opt_cfg(cfg)
+    step = make_train_step(model, ocfg, num_microbatches=1, remat=True)
+    want_p, _, want_m = step(params, opt.init(ocfg, params), batch)
+    rules = dryrun.pick_rules(cfg, shape, mesh)
+    with dryrun.sharded_scope(mesh, rules):
+        psh = shr.params_shardings(model.spec_tree(), rules, mesh)
+        state = opt.init(ocfg, params)
+        osh = dryrun.opt_state_shardings(psh, ocfg, model.spec_tree(), mesh)
+        got_p, _, got_m = step(
+            dryrun.distribute(params, psh),
+            opt.AdamWState(count=dryrun.distribute(
+                {"c": state.count}, {"c": osh.count})["c"],
+                m=dryrun.distribute(state.m, osh.m),
+                v=dryrun.distribute(state.v, osh.v)),
+            dryrun.distribute(batch, shr.batch_shardings(batch, rules, mesh)))
+    train = {"params": worst(got_p, want_p),
+             "loss": worst({"l": got_m["loss"]}, {"l": want_m["loss"]})}
+
+    cfg = get_arch("qwen3-14b").reduced()
+    model = build_model(cfg)
+    params = model.init(gen, device)
+    rows, length = c["decode_rows"], c["decode_len"]
+    cache = model.init_cache(rows, length, device)
+    for _, t in tree_leaves(cache):
+        if t.is_floating_point():
+            t.normal_(generator=gen)
+    cache["len"].fill_(length // 2)
+    tok = torch.randint(0, cfg.vocab_size, (rows,), generator=gen,
+                        device=device, dtype=torch.int32)
+    shape = dataclasses.replace(ALL_SHAPES["decode_32k"], global_batch=rows,
+                                seq_len=length)
+    rules = dryrun.pick_rules(cfg, shape, mesh)
+    d_cache = {k: v for k, v in cache.items()}
+    import copy
+    plain_cache = copy.deepcopy(cache)
+    want_l, want_c = model.decode_step(params, plain_cache, tok)
+    with dryrun.sharded_scope(mesh, rules):
+        psh = shr.params_shardings(model.spec_tree(), rules, mesh)
+        d_cache = dryrun.distribute(cache, shr.cache_shardings(
+            cache, rules, mesh, cfg))
+        got_l, got_c = model.decode_step(
+            dryrun.distribute(params, psh), d_cache,
+            dryrun.distribute({"t": tok}, {"t": shr.NamedSharding(
+                mesh, shr.batch_pspec(rules, mesh, 1,
+                                      batch_size=rows))})["t"])
+    decode = {"logits": worst({"x": got_l}, {"x": want_l}),
+              "cache": worst(got_c, want_c)}
+    return {"train": train, "decode": decode}
+
+
+def phase_dryrun(out):
+    """Phase 17: the dry run and its roofline. 17a traces the production
+    cells (DRYRUN_CELLS) on fake worlds of 256 and 512 ranks and renders
+    the roofline section; gates: the reference's record keys, flops > 0,
+    wire bytes > 0 where the model axis is > 1, argument bytes equal to
+    the phase's own sum from the specs. 17b traces phase 14's step on a
+    fake world of 1 and holds its dot flops to FlopCounterMode's count of
+    one real step on the card (DRYRUN_FLOP_TOL); its bound beside phase
+    14's ms a step. 17c runs the traced programs for real on an NCCL
+    world of 1 (16c's harness) against the plain steps. Four cards are
+    not present: no sharded step runs across cards. No kernel lies on
+    this path: every launch counter reads 0."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import free_port
+    free_card(out)
+    zero_launches()
+    recs, rows, wall = dryrun_cells()
+    cells = {}
+    for (arch, shape, mesh), rec in recs.items():
+        what = f"dryrun {arch} {shape} {mesh}"
+        check(set(rec) == set(DRYRUN_KEYS), f"{what}: keys "
+              f"{sorted(set(rec) ^ set(DRYRUN_KEYS))} differ from the "
+              f"reference's")
+        check(rec["flops_per_device"] > 0, f"{what}: no flops")
+        check(rec["collective_wire_bytes"] > 0, f"{what}: no wire bytes on "
+              f"a model axis of 16")
+        own = dryrun_argument_bytes(arch, shape, mesh == "multi")
+        check(rec["memory_per_device"]["argument_size_in_bytes"] == own,
+              f"{what}: argument bytes "
+              f"{rec['memory_per_device']['argument_size_in_bytes']} != "
+              f"the specs' {own}")
+        cells[f"{arch}/{shape}/{rec['mesh']}"] = dryrun_cell_line(rec, own)
+    part_a = {"cells": cells, "roofline_rows": rows, "wall_s": wall}
+
+    t0 = time.perf_counter()
+    batch, seq = TRAIN_BATCH, TRAIN_SEQ
+    nmb = int(TRAIN_FULL[TRAIN_FULL.index("--microbatches") + 1]) \
+        if "--microbatches" in TRAIN_FULL else 1
+    rec = trace_one_card("gemma3-1b", batch, seq, nmb)
+    trace_s = time.perf_counter() - t0
+    counted = counted_train_flops("gemma3-1b", batch, seq, nmb, "cuda")
+    free_card(out)
+    gap = abs(rec["dot_flops_per_device"] - counted) / counted
+    check(gap <= DRYRUN_FLOP_TOL, f"17b: traced dot flops "
+          f"{rec['dot_flops_per_device']:.6e} vs FlopCounterMode "
+          f"{counted:.6e} ({gap:.2%})")
+    bound = max(rec["t_compute"], rec["t_memory"], rec["t_collective"])
+    ms = out.get("train_ms_per_step")
+    part_b = {"shape": [batch, seq], "microbatches": nmb,
+              "dot_flops": rec["dot_flops_per_device"],
+              "flop_counter_flops": counted, "flop_gap": gap,
+              "flops": rec["flops_per_device"],
+              "bytes": rec["bytes_per_device"],
+              "t_compute": rec["t_compute"], "t_memory": rec["t_memory"],
+              "t_collective": rec["t_collective"],
+              "step_time_lower_bound_ms": 1e3 * bound,
+              "bottleneck": rec["bottleneck"], "mfu_bound": rec["mfu_bound"],
+              "phase14_ms_per_step": ms,
+              "bound_over_measured": (1e3 * bound / ms) if ms else None,
+              "trace_s": trace_s}
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        par = sharded_parity("cuda")
+    finally:
+        dist.destroy_process_group()
+    tol = DRYRUN_PARITY["tol"]
+    for step, errs in par.items():
+        for what, err in errs.items():
+            check(err <= tol, f"17c {step} {what}: {err:.3e} x max(1, "
+                  f"max |plain|) > {tol}")
+    launches = read_launches()
+    check(not any(launches.values()), f"dryrun: a kernel launched on a "
+          f"path that has none: {launches}")
+    out["launches_dryrun"] = launches
+    return {"a_production_meshes": part_a, "b_one_card": part_b,
+            "c_sharded_parity": {
+                "errors_over_scale": par, "tol": tol,
+                "world": "NCCL world of 1, mesh (1, 1); four cards are "
+                         "not present"},
+            "launches": launches}
+
+
 def _counters():
     from repro_torch.kernels.membench import MEMBENCH
     from repro_torch.kernels.paged_attention import PAGED_DECODE
@@ -4307,7 +4746,8 @@ def kernels_line(out):
                              ("encdec", "launches_encdec"),
                              ("train", "launches_train"),
                              ("paper", "launches_paper"),
-                             ("mesh", "launches_mesh"))
+                             ("mesh", "launches_mesh"),
+                             ("dryrun", "launches_dryrun"))
                          if key in out},
                      **{key: k[key] for key in (
                          "hd256", "jamba", "call_ms", "launch_floor_ms",
@@ -4325,6 +4765,7 @@ def kernels_line(out):
             "launches_train": out.get("launches_train", {}),
             "launches_paper": out.get("launches_paper", {}),
             "launches_mesh": out.get("launches_mesh", {}),
+            "launches_dryrun": out.get("launches_dryrun", {}),
             "card": out.get("card")}
 
 
@@ -4335,15 +4776,16 @@ PHASES = {1: ("card", phase_card), 2: ("kernels", phase_kernels),
           9: ("lifecycle", phase_lifecycle), 10: ("families", phase_families),
           11: ("servebench", phase_servebench), 12: ("ssm", phase_ssm),
           13: ("encdec", phase_encdec), 14: ("train", phase_train),
-          15: ("paper", phase_paper), 16: ("mesh", phase_mesh)}
+          15: ("paper", phase_paper), 16: ("mesh", phase_mesh),
+          17: ("dryrun", phase_dryrun)}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,6,7,8,9,10,11,12,13,14,15,16",
+                    default="1,2,3,4,6,7,8,9,10,11,12,13,14,15,16,17",
                     help="comma-separated phases to run (default: 1-4 and "
-                         "6-16; 5, the profile, runs only when named)")
+                         "6-17; 5, the profile, runs only when named)")
     ap.add_argument("--profile-layout", default="paged",
                     choices=("paged", "slots"),
                     help="the engine phase 5 profiles: the main path "

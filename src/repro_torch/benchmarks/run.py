@@ -14,9 +14,9 @@ Prints ``name,us_per_call,derived`` CSV lines:
   host_*            real-thread host-row sweeps (``hostbench``)
   kernel_*          every CUDA kernel against its plain version
                     (``kernels``; ``us_per_call`` is ``nan`` off the card)
-
-Not offered: ``roofline`` (the dry-run roofline table reads the TPU
-dry-run's XLA artifacts; it waits on the multi-device part of the port).
+  roofline*         the dry run's three-term roofline table on the H100
+                    constants (``roofline``; reads the records
+                    ``launch/dryrun.py`` wrote to ``$DRYRUN_ART``)
 
     PYTHONPATH=src python -m repro_torch.benchmarks.run [--fast] \\
         [--section NAME] [--device cpu]
@@ -48,7 +48,7 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help="smaller sweeps (CI mode)")
     ap.add_argument("--section", default=None,
                     choices=("membench", "primitives", "hostbench",
-                             "kernels"))
+                             "kernels", "roofline"))
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu, for the primitives and "
                          "kernels sections")
@@ -69,6 +69,9 @@ def main(argv: Optional[List[str]] = None) -> None:
             threads=4 if args.fast else 8, ops=100 if args.fast else 300)))
     if args.section in (None, "kernels"):
         sections.append(("kernels", lambda: kernel_rows(args.device)))
+    if args.section in (None, "roofline"):
+        from repro_torch.benchmarks import roofline_report
+        sections.append(("roofline", roofline_report.main))
 
     print("name,us_per_call,derived")
     for name, fn in sections:

@@ -43,6 +43,7 @@ Two semantics differ from JAX and are handled here:
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -51,7 +52,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.paged_attention import paged_decode_fused
-from repro_torch.sharding.act import constrain_seq_model, current_tp
+from repro_torch.sharding.act import (batch_heads_local, constrain_batch,
+                                     constrain_flat_heads,
+                                     constrain_seq_model, current_tp,
+                                     grad_as_value, local_apply,
+                                     is_split, local_update, rows_local,
+                                     seq_local, split_update_slice,
+                                     unit_axes_replicated)
 
 from .common import spec
 from .layers import head_rmsnorm, head_rmsnorm_spec, rope
@@ -105,20 +112,34 @@ def head_plan(n_heads: int, tp: Optional[int] = None) -> Tuple[str, int]:
 def expand_kv(kv: torch.Tensor, n_heads: int, pad_to: int = 0
               ) -> torch.Tensor:
     """[B,T,KV,hd] -> [B,T,H(p),hd]: one K/V head per query head, then
-    zero heads up to ``pad_to``."""
-    b, t, kvh, hd = kv.shape
+    zero heads up to ``pad_to``. A ``DTensor`` split on time (a
+    context-parallel cache) is expanded on each shard: DTensor's rule
+    for the expand hands a shard the global time length."""
+    kvh = kv.shape[2]
     g = n_heads // kvh
-    out = kv if g == 1 else kv[:, :, :, None, :].expand(
-        b, t, kvh, g, hd).reshape(b, t, kvh * g, hd)
+
+    def expand(x):
+        b, t, _, hd = x.shape
+        return x[:, :, :, None, :].expand(b, t, kvh, g, hd).reshape(
+            b, t, kvh * g, hd)
+
+    if g == 1:
+        out = kv
+    elif is_split(kv, 1):
+        out = local_apply(expand, kv, 2, kvh * g)
+    else:
+        out = expand(kv)
     return pad_heads(out, pad_to)
 
 
 def pad_heads(q: torch.Tensor, pad_to: int) -> torch.Tensor:
-    """Zero heads appended on dim 2 up to ``pad_to``."""
+    """Zero heads appended on dim 2 up to ``pad_to`` (on each shard of a
+    ``DTensor`` not split on its heads)."""
     h = q.shape[2]
     if pad_to <= h:
         return q
-    return F.pad(q, (0, 0, 0, pad_to - h))
+    return local_apply(lambda x: F.pad(x, (0, 0, 0, pad_to - h)), q, 2,
+                       pad_to)
 
 
 def _pick_chunk(s: int, target: int = 1024) -> int:
@@ -129,11 +150,21 @@ def _pick_chunk(s: int, target: int = 1024) -> int:
 
 
 # -------------------------------------------------------------- projection
+def project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [B,S,D] @ w [D,H,K] -> [B,S,H,K] (``einsum("bsd,dhk->bshk")``)
+    as one matmul on the flattened (head, dim) axis, pinned before the
+    split into heads (``constrain_flat_heads``), the weight's gradient
+    too (``grad_as_value``)."""
+    b, s, d = x.shape
+    _, h, k = w.shape
+    wf = grad_as_value(unit_axes_replicated(w).reshape(d, h * k))
+    y = constrain_flat_heads(torch.matmul(x, wf), h)
+    return y.reshape(b, s, h, k)
+
+
 def qkv_project(p, cfg, x: torch.Tensor, positions: Optional[torch.Tensor]):
     """x [B,S,D] -> q [B,S,H,hd], k/v [B,S,KV,hd] (qk-norm, then rope)."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q, k, v = (project_heads(x, p[n]) for n in ("wq", "wk", "wv"))
     if cfg.qkv_bias:
         q = q + p["bq"]
         k = k + p["bk"]
@@ -156,7 +187,8 @@ def attention_out(p, y: torch.Tensor, n_heads: int) -> torch.Tensor:
     if hq > n_heads:
         mask = (torch.arange(hq, device=wo.device) < n_heads).to(wo.dtype)
         wo = wo * mask[:, None, None]
-    return torch.einsum("bshk,hkd->bsd", y, wo)
+    return constrain_batch(rows_local(
+        lambda y_, wo_: torch.einsum("bshk,hkd->bsd", y_, wo_), y, wo))
 
 
 # ----------------------------------------------------- full-sequence paths
@@ -273,16 +305,18 @@ def kv_chunked_attention(q: torch.Tensor, k: torch.Tensor,
 
 
 def banded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                     window: int) -> torch.Tensor:
+                     window: int, q_offset: int = 0) -> torch.Tensor:
     """Exact causal sliding-window attention through a gathered [S, W]
     band of K/V — O(S*W) work and memory, seq-shardable (local layers
-    under the ``'seq'`` plan). q, k, v [B,S,H,hd] (expanded)."""
-    b, s, h, hd = q.shape
+    under the ``'seq'`` plan). q [B,Sq,H,hd] at positions ``q_offset``
+    onwards (a shard of the queries); k, v [B,S,H,hd] (expanded)."""
+    b, sq, h, hd = q.shape
+    s = k.shape[1]
     w = min(window, s)
     scale = 1.0 / math.sqrt(hd)
-    pos = torch.arange(s, device=q.device)
+    pos = q_offset + torch.arange(sq, device=q.device)
     band = pos[:, None] - (w - 1) + torch.arange(w, device=q.device)[None]
-    valid = band >= 0                                         # [S, W]
+    valid = band >= 0                                         # [Sq, W]
     band_c = band.clamp(0, s - 1)
     kb = k[:, band_c]                                         # [B,S,W,H,hd]
     vb = v[:, band_c]
@@ -305,13 +339,15 @@ def full_attention(p, cfg, q: torch.Tensor, k: torch.Tensor,
     plan, _ = head_plan(h)
     hq = q.shape[2]
     if plan in ("shard", "pad"):
-        return blocked_attention(q, expand_kv(k, h, pad_to=hq),
-                                 expand_kv(v, h, pad_to=hq),
-                                 causal=causal, window=window)
+        return batch_heads_local(
+            functools.partial(blocked_attention, causal=causal,
+                              window=window),
+            q, expand_kv(k, h, pad_to=hq), expand_kv(v, h, pad_to=hq))
     # 'seq' plan: replicated heads, sequence-sharded scores
     ke, ve = expand_kv(k, h), expand_kv(v, h)
     if window is not None and causal:
-        return banded_attention(q, ke, ve, window=window)
+        return seq_local(functools.partial(banded_attention, window=window),
+                         q, ke, ve)
     return kv_chunked_attention(q, ke, ve, causal=causal)
 
 
@@ -358,8 +394,12 @@ def update_slice(cache: torch.Tensor, start: torch.Tensor,
     s, t = val.shape[1], cache.shape[1]
     t0 = torch.clamp(torch.as_tensor(start, device=cache.device).long(),
                      0, t - s)
+    if is_split(cache, 1):
+        return split_update_slice(cache, 1, t0, val)
     idx = t0.reshape(1) + torch.arange(s, device=cache.device)
-    return cache.index_copy_(1, idx, val.to(cache.dtype))
+    return local_update(
+        lambda c, i, v: c.index_copy_(1, i, v.to(c.dtype)), cache, 1, idx,
+        val)
 
 
 # -------------------------------------------------------------- paged I/O
@@ -526,9 +566,10 @@ def chunk_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 def cached_decode_attention(p, cfg, q, k_cache, v_cache, cache_len, *,
                             window: Optional[int]) -> torch.Tensor:
     h, hq = cfg.num_heads, q.shape[2]
-    return decode_attention(q, expand_kv(k_cache, h, pad_to=hq),
-                            expand_kv(v_cache, h, pad_to=hq), cache_len,
-                            window=window)
+    return batch_heads_local(
+        functools.partial(decode_attention, window=window), q,
+        expand_kv(k_cache, h, pad_to=hq), expand_kv(v_cache, h, pad_to=hq),
+        cache_len)
 
 
 def cached_chunk_attention(p, cfg, q, k_cache, v_cache, q_positions, *,

@@ -25,12 +25,12 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.sharding.act import constrain_batch
+from repro_torch.sharding.act import constrain_batch, local_apply
 
 from . import attention as attn
 from .common import init_params, stack_specs, tree_map
-from .layers import (embed, embedding_spec, lm_head_spec, mlp, mlp_spec,
-                     rmsnorm, rmsnorm_spec, unembed)
+from .layers import (embed, embedding_spec, label_log_probs, lm_head_spec,
+                     mlp, mlp_spec, rmsnorm, rmsnorm_spec, unembed)
 
 Tree = Dict[str, Any]
 
@@ -191,8 +191,8 @@ class EncDecLM:
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Mean NLL of ``batch["labels"]`` [B,Ld] under
         :meth:`decoder_logits`. Returns (loss, ``{"loss", "tokens"}``)."""
-        logp = torch.log_softmax(self.decoder_logits(params, batch), dim=-1)
-        ll = torch.gather(logp, -1, batch["labels"].long()[..., None])[..., 0]
+        ll = label_log_probs(self.decoder_logits(params, batch),
+                             batch["labels"])
         loss = -torch.mean(ll)
         return loss, {"loss": loss,
                       "tokens": torch.tensor(ll.numel(), device=ll.device)}
@@ -216,12 +216,14 @@ class EncDecLM:
                 enc_out)
             ks.append(k)
             vs.append(v)
-        kv = (cfg.num_layers, b, ml, cfg.num_kv_heads, cfg.resolved_head_dim)
+        cross = {"cross_k": torch.stack(ks), "cross_v": torch.stack(vs)}
+        # the self cache lies as the cross cache does (its time dim aside)
         cache = {
-            "cross": {"cross_k": torch.stack(ks), "cross_v": torch.stack(vs)},
-            "self": {n: torch.zeros(kv, dtype=cfg.dtype,
-                                    device=enc_out.device)
-                     for n in ("k", "v")},
+            "cross": cross,
+            "self": {n: local_apply(
+                lambda x: torch.zeros(x.shape[:2] + (ml,) + x.shape[3:],
+                                      dtype=cfg.dtype, device=x.device),
+                cross["cross_k"], 2, ml) for n in ("k", "v")},
             "len": torch.zeros((), dtype=torch.int32, device=enc_out.device),
         }
         bos = torch.zeros((b,), dtype=torch.int32, device=enc_out.device)

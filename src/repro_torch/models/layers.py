@@ -5,6 +5,10 @@ the reference's layouts and computes in the reference's precisions."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.sharding.act import (constrain_batch, is_distributed,
+                                     vocab_parallel_log_prob)
 
 from .common import activation, spec
 
@@ -54,7 +58,10 @@ def embedding_spec(vocab: int, d: int, dtype):
 
 
 def embed(p, token_ids: torch.Tensor) -> torch.Tensor:
-    return p["tokens"][token_ids.long()]
+    """Rows of the table (``F.embedding``: on a vocab-sharded ``DTensor``
+    table each device looks up its own rows and the partial rows are
+    summed, where indexing would gather the whole table)."""
+    return F.embedding(token_ids.long(), p["tokens"])
 
 
 _UNEMBED_ROWS = 16384   # vocab rows cast to float32 at a time
@@ -66,14 +73,29 @@ def unembed(p_embed, p_head, x: torch.Tensor, *, tie: bool) -> torch.Tensor:
     151k-row bf16 embedding never needs a whole float32 copy."""
     xf = x.float()
     w = p_embed["tokens"] if tie else p_head["kernel"].t()       # [V, d]
-    if w.dtype == torch.float32:
-        return torch.einsum("bsd,vd->bsv", xf, w)
+    if w.dtype == torch.float32 or is_distributed(w):
+        # a vocab-sharded weight is cast on its shards: blocking its
+        # rows would gather them
+        return torch.einsum("bsd,vd->bsv", xf, w.float())
     out = torch.empty(x.shape[:-1] + (w.shape[0],), dtype=torch.float32,
                       device=x.device)
     for v0 in range(0, w.shape[0], _UNEMBED_ROWS):
         out[..., v0:v0 + _UNEMBED_ROWS] = torch.einsum(
             "bsd,vd->bsv", xf, w[v0:v0 + _UNEMBED_ROWS].float())
     return out
+
+
+def label_log_probs(logits: torch.Tensor, labels: torch.Tensor
+                    ) -> torch.Tensor:
+    """``log_softmax(logits)[..., labels]``: [..., V] logits, [...]
+    label ids. A ``DTensor`` split on the vocabulary takes the
+    vocabulary-parallel form (``sharding.act.vocab_parallel_log_prob``:
+    two small all-reduces, where the plain form would gather every
+    logit)."""
+    if is_distributed(logits):
+        return vocab_parallel_log_prob(logits, labels)
+    logp = torch.log_softmax(logits, dim=-1)
+    return torch.gather(logp, -1, labels.long()[..., None])[..., 0]
 
 
 def lm_head_spec(d: int, vocab: int, dtype):
@@ -98,6 +120,7 @@ def mlp(p, x: torch.Tensor, act: str) -> torch.Tensor:
         g = torch.einsum("bsd,df->bsf", x, p["gate"])
         u = torch.einsum("bsd,df->bsf", x, p["up"])
         a = activation("silu" if act == "swiglu" else "gelu")
-        return torch.einsum("bsf,fd->bsd", a(g) * u, p["down"])
+        return constrain_batch(
+            torch.einsum("bsf,fd->bsd", a(g) * u, p["down"]))
     h = activation(act)(torch.einsum("bsd,df->bsf", x, p["in"]))
-    return torch.einsum("bsf,fd->bsd", h, p["out"])
+    return constrain_batch(torch.einsum("bsf,fd->bsd", h, p["out"]))

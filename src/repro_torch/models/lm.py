@@ -37,13 +37,13 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.sharding.act import constrain_batch
+from repro_torch.sharding.act import checkpoint_contexts, constrain_batch
 
 from . import attention as attn
 from . import blocks
 from .common import init_params, stack_specs, tree_map
-from .layers import (embed, embedding_spec, lm_head_spec, rmsnorm,
-                     rmsnorm_spec, unembed)
+from .layers import (embed, embedding_spec, label_log_probs, lm_head_spec,
+                     rmsnorm, rmsnorm_spec, unembed)
 from .mamba import mamba_state_shape
 
 Tree = Dict[str, Any]
@@ -234,7 +234,8 @@ class LM:
         def run(lo, hi, x, *acc):
             carry = (x,) + acc
             for i in range(lo, hi):
-                carry = checkpoint(one, i, *carry, use_reentrant=False)
+                carry = checkpoint(one, i, *carry, use_reentrant=False,
+                                   context_fn=checkpoint_contexts)
             return carry
 
         group = self._remat_group()
@@ -242,7 +243,8 @@ class LM:
         for g0 in range(0, self.n_periods, group):
             if group > 1:
                 carry = checkpoint(run, g0, g0 + group, *carry,
-                                   use_reentrant=False)
+                                   use_reentrant=False,
+                                   context_fn=checkpoint_contexts)
             else:
                 carry = run(g0, g0 + 1, *carry)
         return carry[0], dict(zip(keys, carry[1:]))
@@ -308,8 +310,7 @@ class LM:
         and reports it and ``total_loss``."""
         logits, aux = self.forward(params, batch)
         labels = batch["labels"]
-        logp = torch.log_softmax(logits, dim=-1)
-        ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+        ll = label_log_probs(logits, labels)
         mask = batch.get("mask")
         mask = torch.ones_like(ll) if mask is None else mask.to(ll.dtype)
         loss = -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -23,6 +23,10 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.analysis.step_stats import (counted_trips, loop_sampler,
+                                           repeat_trips)
+from repro_torch.sharding.act import constrain_batch, grad_as_value
+
 from .common import spec
 
 
@@ -54,7 +58,10 @@ def mamba_spec(cfg, dtype):
 
 def _ssm_inputs(p, x: torch.Tensor, cfg):
     """The input projection. x [B,S,D] -> (x1, z) [B,S,DI] each."""
-    xz = torch.einsum("bsd,de->bse", x, p["in_proj"])
+    # the gradient back at the product's split: ``chunk`` of the split
+    # last dim hands it back replicated, and in_proj's weight gradient
+    # would run whole on every device
+    xz = grad_as_value(torch.einsum("bsd,de->bse", x, p["in_proj"]))
     x1, z = torch.chunk(xz, 2, dim=-1)
     return x1, z
 
@@ -64,7 +71,7 @@ def _post_conv(p, x1c: torch.Tensor, cfg):
     [B,S,N] (float32)."""
     _, _, n, _, dtr = _dims(cfg)
     x1c = F.silu(x1c)
-    bcdt = torch.einsum("bse,ef->bsf", x1c, p["x_proj"])
+    bcdt = constrain_batch(torch.einsum("bse,ef->bsf", x1c, p["x_proj"]))
     dt_low = bcdt[..., :dtr]
     bs = bcdt[..., dtr:dtr + n].float()
     cs = bcdt[..., dtr + n:].float()
@@ -111,13 +118,22 @@ def _chunk_scan_sequential(dtc: torch.Tensor, bsc: torch.Tensor,
     """One step per token of the chunk: ``dA``/``dBx`` [B,DI,N] are made
     on the fly and only ``h`` stays live. dtc, xc [B,L,DI]; bsc, csc
     [B,L,N]; A [DI,N]. Returns (y_chunk [B,L,DI], h_last)."""
-    h, ys = h0, []
-    for t in range(dtc.shape[1]):
-        dt_t, bs_t, cs_t, x_t = dtc[:, t], bsc[:, t], csc[:, t], xc[:, t]
+    def step(h, dt_t, bs_t, cs_t, x_t, A):
         dA = torch.exp(dt_t[..., None] * A)
         dBx = (dt_t * x_t)[..., None] * bs_t[:, None, :]
         h = dA * h + dBx
-        ys.append(torch.einsum("ben,bn->be", h, cs_t))
+        return torch.einsum("ben,bn->be", h, cs_t), h
+
+    n_steps = dtc.shape[1]
+    counter = loop_sampler(n_steps)
+    if counter is not None:   # a counted trace: one step stands for all
+        y, h = counted_trips(counter, n_steps, step, h0, dtc[:, 0],
+                             bsc[:, 0], csc[:, 0], xc[:, 0], A)
+        return repeat_trips(y, n_steps, 1, stack=True), h
+    h, ys = h0, []
+    for t in range(n_steps):
+        y, h = step(h, dtc[:, t], bsc[:, t], csc[:, t], xc[:, t], A)
+        ys.append(y)
     return torch.stack(ys, dim=1), h
 
 
@@ -146,21 +162,30 @@ def mamba_forward(p, x: torch.Tensor, cfg, *, chunk: int = 128,
     A = -torch.exp(p["A_log"])                           # [DI,N]
     x1f = x1c.float()
 
-    h = torch.zeros((b, di, n), dtype=torch.float32, device=x.device)
-    ys = []
-    for t0 in range(0, s, lc):
-        dtc, bsc, csc, xc = (t[:, t0:t0 + lc] for t in (dt, bs, cs, x1f))
+    def scan_chunk(dtc, bsc, csc, xc, A, h):
         if inner == "associative":
             dA = torch.exp(dtc[..., None] * A)                # [B,L,DI,N]
             dBx = (dtc * xc)[..., None] * bsc[:, :, None, :]
             h_all, h = _chunk_scan_associative(dA, dBx, h)
-            ys.append(torch.einsum("blen,bln->ble", h_all, csc))
-        else:
-            yc, h = _chunk_scan_sequential(dtc, bsc, csc, xc, A, h)
+            return torch.einsum("blen,bln->ble", h_all, csc), h
+        return _chunk_scan_sequential(dtc, bsc, csc, xc, A, h)
+
+    h = torch.zeros((b, di, n), dtype=torch.float32, device=x.device)
+    counter = loop_sampler(s // lc)
+    if counter is not None:   # a counted trace: one chunk stands for all
+        yc, h = counted_trips(counter, s // lc, scan_chunk,
+                              *(t[:, :lc] for t in (dt, bs, cs, x1f)), A, h)
+        y = repeat_trips(yc, s // lc, 1, stack=False)
+    else:
+        ys = []
+        for t0 in range(0, s, lc):
+            yc, h = scan_chunk(*(t[:, t0:t0 + lc] for t in (dt, bs, cs, x1f)),
+                               A, h)
             ys.append(yc)
-    y = torch.cat(ys, dim=1) + p["D"] * x1f              # [B,S,DI]
+        y = torch.cat(ys, dim=1)
+    y = y + p["D"] * x1f                                 # [B,S,DI]
     y = y.to(x.dtype) * F.silu(z)
-    out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
+    out = constrain_batch(torch.einsum("bse,ed->bsd", y, p["out_proj"]))
 
     if s >= cw - 1:
         conv_tail = x1[:, s - (cw - 1):]
@@ -187,7 +212,7 @@ def mamba_decode_step(p, x: torch.Tensor,
     h_new = dA * h + dBx
     y = torch.einsum("ben,bn->be", h_new, cs[:, 0]) + p["D"] * xf
     y = y[:, None].to(x.dtype) * F.silu(z)
-    out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
+    out = constrain_batch(torch.einsum("bse,ed->bsd", y, p["out_proj"]))
     new_tail = torch.cat([conv_tail[:, 1:], x1.to(conv_tail.dtype)], dim=1)
     return out, (new_tail, h_new)
 

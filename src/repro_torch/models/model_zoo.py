@@ -4,9 +4,10 @@
 ``build_model`` returns the model for an architecture; ``make_batch``
 draws a random batch for an input shape from an explicit
 ``torch.Generator``, on the generator's device, with the reference's
-keys, shapes and dtypes. The reference's ``batch_specs`` /
-``cache_specs`` / ``decode_token_spec`` feed only its multi-device dry
-run and are not ported.
+keys, shapes and dtypes. ``batch_specs`` / ``decode_token_spec`` /
+``cache_specs`` give the same inputs as ``meta`` tensors (no memory, the
+counterpart of the reference's ``jax.ShapeDtypeStruct``s): the dry
+run's only view of the data (``launch/dryrun.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +28,49 @@ def build_model(cfg) -> Model:
     if cfg.is_encdec:
         return EncDecLM(cfg)
     return LM(cfg)
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(int(x) for x in shape), dtype=dtype,
+                       device="meta")
+
+
+def batch_specs(cfg, shape) -> Dict[str, torch.Tensor]:
+    """``meta`` inputs of a train (``mode='train'``) or prefill batch,
+    with ``make_batch``'s keys, shapes and dtypes."""
+    b, s = shape.global_batch, shape.seq_len
+    train = shape.mode == "train"
+    if cfg.is_encdec:
+        specs = {"embeds": _meta((b, s, cfg.d_model), cfg.dtype)}
+        if train:
+            specs["tokens"] = _meta((b, cfg.decoder_len), torch.int32)
+            specs["labels"] = _meta((b, cfg.decoder_len), torch.int32)
+        return specs
+    if cfg.frontend is not None:
+        specs = {"embeds": _meta((b, s, cfg.d_model), cfg.dtype)}
+        if train:
+            specs["labels"] = _meta((b, s), torch.int32)
+        return specs
+    specs = {"tokens": _meta((b, s), torch.int32)}
+    if train:
+        specs["labels"] = _meta((b, s), torch.int32)
+    return specs
+
+
+def decode_token_spec(cfg, shape) -> torch.Tensor:
+    """The ``meta`` input of one decode step: token ids [B], or the stub
+    frontend's next embedding [B, D]."""
+    b = shape.global_batch
+    if cfg.frontend is not None and not cfg.is_encdec:
+        return _meta((b, cfg.d_model), cfg.dtype)
+    return _meta((b,), torch.int32)
+
+
+def cache_specs(cfg, shape, model: Model):
+    """The ``meta`` decode cache of a decode cell: the model's
+    ``init_cache`` at the shape's batch and length."""
+    return model.init_cache(shape.global_batch, shape.seq_len,
+                            device="meta")
 
 
 def make_batch(cfg, shape, generator: torch.Generator,

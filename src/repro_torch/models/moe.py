@@ -35,7 +35,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.sharding.act import constrain_expert_model
+from repro_torch.sharding.act import (constrain_batch, constrain_dispatch,
+                                     constrain_expert_model)
 
 from .common import spec
 
@@ -166,11 +167,17 @@ def moe_ffn_einsum(p, x: torch.Tensor, cfg
     cap = capacity(s, mo.num_experts, mo.top_k, mo.capacity_factor)
     dispatch, combine, aux = route(x, p["router"], mo.num_experts,
                                    mo.top_k, cap)
+    dispatch, combine = constrain_dispatch(dispatch), constrain_dispatch(
+        combine)
     xin = constrain_expert_model(
         torch.einsum("bsec,bsd->ebcd", dispatch.to(x.dtype), x))
     out = constrain_expert_model(_expert_ffn(p, xin, cfg))
-    y = torch.einsum("ebcd,bsec->bsd", out, combine.to(x.dtype))
-    return y.to(x.dtype), aux
+    # the combine einsum "ebcd,bsec->bsd" as one batched matmul over the
+    # flattened (expert, slot) axis, expert-major
+    b, s_, e, c = combine.shape
+    y = torch.bmm(combine.to(x.dtype).reshape(b, s_, e * c),
+                  out.permute(1, 0, 2, 3).reshape(b, e * c, out.shape[-1]))
+    return constrain_batch(y.to(x.dtype)), aux
 
 
 def moe_ffn_gather(p, x: torch.Tensor, cfg

@@ -3,7 +3,7 @@ port's ``benchmarks/run.py`` twin: the row names equal the JAX
 package's ``benchmarks/hostbench.py`` (loaded by file path) at the same
 sizes, every rate is finite and above 0, and each section of the run
 entry point prints its rows on the CPU (the primitives section on small
-block lists)."""
+block lists; the roofline section on a reduced dry run's record)."""
 
 import importlib.util
 import math
@@ -112,9 +112,31 @@ def test_run_sections_print_their_rows(capsys, monkeypatch, section,
 
 
 @pytest.mark.parametrize("section", ["roofline"])
-def test_run_offers_no_section_the_port_lacks(section):
-    with pytest.raises(SystemExit):
-        run.main(["--section", section])
+def test_run_offers_no_section_the_port_lacks(section, tmp_path,
+                                              monkeypatch, capsys):
+    """The last section the port lacked renders a record that a reduced
+    dry run wrote (whisper-small's decode cell on a fake (2, 4) world)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    monkeypatch.setattr(dryrun, "get_arch",
+                        lambda name: get_arch(name).reduced())
+    with dryrun.fake_world(8):
+        dryrun.run_cell("whisper-small", "decode_32k", multi_pod=False,
+                        out_dir=str(tmp_path),
+                        mesh=make_mesh((2, 4), ("data", "model")))
+    monkeypatch.setenv("DRYRUN_ART", str(tmp_path))
+    capsys.readouterr()
+    run.main(["--section", section])
+    rows = capsys.readouterr().out.splitlines()
+    assert rows[0] == "name,us_per_call,derived"
+    table = [r for r in rows if r.startswith("roofline,")]
+    assert table[0].endswith("bottleneck,useful_flops_ratio,mfu_bound")
+    cell = table[1].split(",")
+    assert cell[2:5] == ["whisper-small", "decode_32k", "2x4"]
+    assert all(float(t) >= 0 for t in cell[5:8])   # 4 decimals of a second
+    assert cell[8] in ("compute", "memory", "collective")
+    assert 0 < float(cell[9]) and 0 <= float(cell[10]) <= 1
 
 
 def test_run_kernels_refuse_the_cpu_by_default():

@@ -33,6 +33,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or "
         "k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized(), 'an import joined a group'\n"
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n"
         "print(' '.join(sorted(sys.modules)))\n"
         "assert not bad, bad\n")
@@ -63,7 +65,10 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
                 "repro_torch.examples.quickstart",
                 "repro_torch.sharding.rules", "repro_torch.sharding.act",
                 "repro_torch.launch.mesh", "repro_torch.core.device_barrier",
-                "repro_torch.train.elastic"):
+                "repro_torch.train.elastic", "repro_torch.launch.dryrun",
+                "repro_torch.analysis.roofline",
+                "repro_torch.analysis.step_stats",
+                "repro_torch.benchmarks.roofline_report"):
         assert mod in names.split(), mod
 
 

@@ -2,13 +2,17 @@
 (dense or MoE), over the full sequence, the contiguous slot cache or the
 paged arena (counterpart of ``repro.models.blocks``). A mamba block has
 no FFN sublayer when ``d_ff == 0``, and its state ``{"conv", "h"}`` has
-no time axis: it stays slot-dense in either layout."""
+no time axis: it stays slot-dense in either layout. While a profiler
+records, an attention mixer runs inside a ``model.attention`` range and
+a dense FFN inside ``model.ffn`` (an MoE FFN: ``model.moe``)."""
 
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple, Union
 
 import torch
+
+from repro_torch.core.spans import span
 
 from . import attention as attn
 from . import mamba as mb
@@ -46,7 +50,8 @@ def _ffn(p, x, cfg, use_moe: bool) -> Tuple[torch.Tensor, Dict]:
     if use_moe:
         y, aux = moe_mod.moe_ffn(p["ffn"], h, cfg)
         return x + y, aux
-    return x + mlp(p["ffn"], h, cfg.activation), {}
+    with span("model.ffn"):
+        return x + mlp(p["ffn"], h, cfg.activation), {}
 
 
 def block_forward(p, x: torch.Tensor, cfg, kind: str, use_moe: bool,
@@ -59,10 +64,11 @@ def block_forward(p, x: torch.Tensor, cfg, kind: str, use_moe: bool,
         y, (conv, hs) = mb.mamba_forward(p["mixer"], h, cfg)
         x, aux = _ffn(p, x + y, cfg, use_moe)
         return x, {"conv": conv, "h": hs}, aux
-    q, k, v = attn.qkv_project(p["mixer"], cfg, h, positions)
-    y = attn.full_attention(p["mixer"], cfg, q, k, v, causal=True,
-                            window=window_for(cfg, kind))
-    x = x + attn.attention_out(p["mixer"], y, cfg.num_heads)
+    with span("model.attention"):
+        q, k, v = attn.qkv_project(p["mixer"], cfg, h, positions)
+        y = attn.full_attention(p["mixer"], cfg, q, k, v, causal=True,
+                                window=window_for(cfg, kind))
+        x = x + attn.attention_out(p["mixer"], y, cfg.num_heads)
     x, aux = _ffn(p, x, cfg, use_moe)
     return x, {"k": k, "v": v}, aux
 
@@ -104,33 +110,34 @@ def block_decode(p, x: torch.Tensor, cache: Dict, cache_len: torch.Tensor,
         cache["conv"].copy_(conv)
         cache["h"].copy_(hs)
         return _ffn(p, x + y, cfg, use_moe)[0], cache
-    positions = (cl[:, None] if cl.dim() == 1
-                 else cl.reshape(1, 1).expand(x.shape[0], 1))
-    q, k, v = attn.qkv_project(p["mixer"], cfg, h, positions)
-    if pages is not None:
-        if cl.dim() != 1:
-            raise ValueError("paged decode requires per-row [B] lens")
-        if write_plan is None:
-            write_plan = attn.page_write_plan(
-                pages, cl, cache["k"].shape[0], cache["k"].shape[1])
-        attn.scatter_planned(cache["k"], write_plan, k[:, 0])
-        attn.scatter_planned(cache["v"], write_plan, v[:, 0])
-        y = attn.paged_decode_attention(
-            p["mixer"], cfg, q, cache["k"], cache["v"], pages, cl + 1,
-            window=window_for(cfg, kind), impl=attn_impl)
-    else:
-        if cl.dim() == 1:
+    with span("model.attention"):
+        positions = (cl[:, None] if cl.dim() == 1
+                     else cl.reshape(1, 1).expand(x.shape[0], 1))
+        q, k, v = attn.qkv_project(p["mixer"], cfg, h, positions)
+        if pages is not None:
+            if cl.dim() != 1:
+                raise ValueError("paged decode requires per-row [B] lens")
             if write_plan is None:
-                write_plan = attn.row_write_plan(cl, cache["k"].shape[1])
-            attn.scatter_rows(cache["k"], write_plan, k)
-            attn.scatter_rows(cache["v"], write_plan, v)
+                write_plan = attn.page_write_plan(
+                    pages, cl, cache["k"].shape[0], cache["k"].shape[1])
+            attn.scatter_planned(cache["k"], write_plan, k[:, 0])
+            attn.scatter_planned(cache["v"], write_plan, v[:, 0])
+            y = attn.paged_decode_attention(
+                p["mixer"], cfg, q, cache["k"], cache["v"], pages, cl + 1,
+                window=window_for(cfg, kind), impl=attn_impl)
         else:
-            attn.update_slice(cache["k"], cl, k)
-            attn.update_slice(cache["v"], cl, v)
-        y = attn.cached_decode_attention(
-            p["mixer"], cfg, q, cache["k"], cache["v"], cl + 1,
-            window=window_for(cfg, kind))
-    x = x + attn.attention_out(p["mixer"], y, cfg.num_heads)
+            if cl.dim() == 1:
+                if write_plan is None:
+                    write_plan = attn.row_write_plan(cl, cache["k"].shape[1])
+                attn.scatter_rows(cache["k"], write_plan, k)
+                attn.scatter_rows(cache["v"], write_plan, v)
+            else:
+                attn.update_slice(cache["k"], cl, k)
+                attn.update_slice(cache["v"], cl, v)
+            y = attn.cached_decode_attention(
+                p["mixer"], cfg, q, cache["k"], cache["v"], cl + 1,
+                window=window_for(cfg, kind))
+        x = x + attn.attention_out(p["mixer"], y, cfg.num_heads)
     return _ffn(p, x, cfg, use_moe)[0], cache
 
 
@@ -154,27 +161,29 @@ def block_prefill_chunk(p, x: torch.Tensor, cache: Dict, cfg, kind: str,
     if kind == "mamba":
         raise ValueError(MAMBA_NOT_CHUNKED)
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    q, k, v = attn.qkv_project(p["mixer"], cfg, h, positions)
-    window = window_for(cfg, kind)
-    if pages is None:
-        if write_plan is None:
-            write_plan = attn.row_write_plan(write_pos, cache["k"].shape[1])
-        attn.scatter_rows(cache["k"], write_plan, k)
-        attn.scatter_rows(cache["v"], write_plan, v)
-        y = attn.cached_chunk_attention(
-            p["mixer"], cfg, q, cache["k"], cache["v"], positions,
-            window=window)
+    with span("model.attention"):
+        q, k, v = attn.qkv_project(p["mixer"], cfg, h, positions)
+        window = window_for(cfg, kind)
+        if pages is None:
+            if write_plan is None:
+                write_plan = attn.row_write_plan(write_pos,
+                                                 cache["k"].shape[1])
+            attn.scatter_rows(cache["k"], write_plan, k)
+            attn.scatter_rows(cache["v"], write_plan, v)
+            y = attn.cached_chunk_attention(
+                p["mixer"], cfg, q, cache["k"], cache["v"], positions,
+                window=window)
+        else:
+            if write_plan is None:
+                write_plan = attn.page_write_plan(
+                    pages, write_pos, cache["k"].shape[0],
+                    cache["k"].shape[1])
+            attn.scatter_planned(cache["k"], write_plan, k)
+            attn.scatter_planned(cache["v"], write_plan, v)
+            y = attn.paged_chunk_attention(
+                p["mixer"], cfg, q, cache["k"], cache["v"], pages,
+                positions, window=window)
         x = x + attn.attention_out(p["mixer"], y, cfg.num_heads)
-        return _ffn(p, x, cfg, use_moe)[0], cache
-    if write_plan is None:
-        write_plan = attn.page_write_plan(
-            pages, write_pos, cache["k"].shape[0], cache["k"].shape[1])
-    attn.scatter_planned(cache["k"], write_plan, k)
-    attn.scatter_planned(cache["v"], write_plan, v)
-    y = attn.paged_chunk_attention(
-        p["mixer"], cfg, q, cache["k"], cache["v"], pages, positions,
-        window=window)
-    x = x + attn.attention_out(p["mixer"], y, cfg.num_heads)
     return _ffn(p, x, cfg, use_moe)[0], cache
 
 

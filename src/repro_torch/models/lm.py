@@ -37,6 +37,7 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.spans import span
 from repro_torch.sharding.act import checkpoint_contexts, constrain_batch
 
 from . import attention as attn
@@ -184,9 +185,10 @@ class LM:
         return constrain_batch(batch["embeds"].to(self.cfg.dtype))
 
     def _unembed(self, params: Tree, x: torch.Tensor) -> torch.Tensor:
-        if self.cfg.frontend is None and self.cfg.tie_embeddings:
-            return unembed(params["embed"], None, x, tie=True)
-        return unembed(None, params["lm_head"], x, tie=False)
+        with span("model.unembed"):
+            if self.cfg.frontend is None and self.cfg.tie_embeddings:
+                return unembed(params["embed"], None, x, tie=True)
+            return unembed(None, params["lm_head"], x, tie=False)
 
     # ------------------------------------------------------------- forward
     def forward(self, params: Tree, batch: Dict[str, torch.Tensor]
@@ -388,20 +390,21 @@ class LM:
         cfg = self.cfg
         if "mamba" in cfg.layer_pattern:
             raise ValueError(blocks.MAMBA_NOT_CHUNKED)
-        pages = cache.get("pages")
-        if pages is not None:
-            plan = attn.page_write_plan(pages, write_pos,
-                                        *self._arena_shape(cache))
-        else:
-            plan = attn.row_write_plan(write_pos,
-                                       self._arena_shape(cache)[1])
-        x = self._embed(params, tokens)
-        for p, c, kind, use_moe in self._layers(params, cache):
-            x, _ = blocks.block_prefill_chunk(
-                p, x, c, cfg, kind, use_moe, positions, write_pos, pages,
-                write_plan=plan)
-        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-        return self._unembed(params, x), cache
+        with span("model.prefill_chunk"):
+            pages = cache.get("pages")
+            if pages is not None:
+                plan = attn.page_write_plan(pages, write_pos,
+                                            *self._arena_shape(cache))
+            else:
+                plan = attn.row_write_plan(write_pos,
+                                           self._arena_shape(cache)[1])
+            x = self._embed(params, tokens)
+            for p, c, kind, use_moe in self._layers(params, cache):
+                x, _ = blocks.block_prefill_chunk(
+                    p, x, c, cfg, kind, use_moe, positions, write_pos,
+                    pages, write_plan=plan)
+            x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+            return self._unembed(params, x), cache
 
     def decode_step(self, params: Tree, cache: Tree,
                     token_or_embed: torch.Tensor, *,
@@ -414,28 +417,29 @@ class LM:
         otherwise the contiguous one, at a scalar or per-row ``len``. A
         mamba layer steps its slot-dense state; the block table does not
         touch it."""
-        cfg = self.cfg
-        cache_len = cache["len"]
-        pages = cache.get("pages")
-        plan = None               # one write plan serves every layer
-        arena = self._arena_shape(cache)
-        if arena is not None and pages is not None:
-            plan = attn.page_write_plan(pages, cache_len, *arena)
-        elif arena is not None and cache_len.dim() == 1:
-            plan = attn.row_write_plan(cache_len, arena[1])
-        if cfg.frontend is None:
-            x = self._embed(params, token_or_embed[:, None])
-        else:
-            x = token_or_embed.to(cfg.dtype)
-            if x.dim() == 2:
-                x = x[:, None, :]
-            x = constrain_batch(x)
-        for p, c, kind, use_moe in self._layers(params, cache):
-            x, _ = blocks.block_decode(p, x, c, cache_len, cfg, kind,
-                                       use_moe, pages, attn_impl=attn_impl,
-                                       write_plan=plan)
-        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-        logits = self._unembed(params, x)[:, 0]
-        out = dict(cache)
-        out["len"] = cache_len + 1
-        return logits, out
+        with span("model.decode_step"):
+            cfg = self.cfg
+            cache_len = cache["len"]
+            pages = cache.get("pages")
+            plan = None           # one write plan serves every layer
+            arena = self._arena_shape(cache)
+            if arena is not None and pages is not None:
+                plan = attn.page_write_plan(pages, cache_len, *arena)
+            elif arena is not None and cache_len.dim() == 1:
+                plan = attn.row_write_plan(cache_len, arena[1])
+            if cfg.frontend is None:
+                x = self._embed(params, token_or_embed[:, None])
+            else:
+                x = token_or_embed.to(cfg.dtype)
+                if x.dim() == 2:
+                    x = x[:, None, :]
+                x = constrain_batch(x)
+            for p, c, kind, use_moe in self._layers(params, cache):
+                x, _ = blocks.block_decode(
+                    p, x, c, cache_len, cfg, kind, use_moe, pages,
+                    attn_impl=attn_impl, write_plan=plan)
+            x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+            logits = self._unembed(params, x)[:, 0]
+            out = dict(cache)
+            out["len"] = cache_len + 1
+            return logits, out

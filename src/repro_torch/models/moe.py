@@ -35,6 +35,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.spans import span
 from repro_torch.sharding.act import (constrain_batch, constrain_dispatch,
                                      constrain_expert_model)
 
@@ -209,6 +210,7 @@ def moe_ffn(p, x: torch.Tensor, cfg
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x [B,S,D] -> [B,S,D] through the top-k experts: the einsum dispatch
     unless ``REPRO_MOE_GATHER_DISPATCH`` is set."""
-    if os.environ.get("REPRO_MOE_GATHER_DISPATCH"):
-        return moe_ffn_gather(p, x, cfg)
-    return moe_ffn_einsum(p, x, cfg)
+    with span("model.moe"):
+        if os.environ.get("REPRO_MOE_GATHER_DISPATCH"):
+            return moe_ffn_gather(p, x, cfg)
+        return moe_ffn_einsum(p, x, cfg)

@@ -106,6 +106,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
+from repro_torch.core.spans import PhaseClock, span
 from repro_torch.kernels.build import is_device_error
 from repro_torch.serve.dispatch import DecodeDispatchCache
 from repro_torch.serve.faults import FaultPlan, InjectedFault
@@ -503,6 +504,16 @@ class SlotServeEngine:
         self.prefill_tokens = 0
         self.pad_tokens = 0
         self.prefill_chunks = 0
+        #: rows dispatched x chunk tokens over the rounds that ran a
+        #: prefill chunk (every bucket row's lanes are computed)
+        self.prefill_lanes_computed = 0
+        #: the round's phases on the host clock (they tile ``step``) and
+        #: the dispatch's device spans, read after the token copy
+        self._clock = PhaseClock(
+            self.device, ("prep", "dispatch", "fetch", "post"),
+            {"decode": ("decode", "decode_end"),
+             "prefill": ("decode_end", "prefill_end"),
+             "dispatch": ("dispatch", "dispatch_end")}, prefix="serve.")
         #: one-shot rounds whose admissions prefilled while a request
         #: was decoding (the stall chunked prefill removes)
         self.decode_rounds_stalled_by_prefill = 0
@@ -1302,11 +1313,15 @@ class SlotServeEngine:
         ``(tokens, positions, write positions)`` is given — the chunk's
         writes must overwrite the scratch K/V that the frozen prefilling
         rows' decode steps wrote at their cursor."""
+        clock = self._clock
+        clock.mark("decode")
         cache, tok, toks = self._decode_scan(cache, last_tok, frozen, steps)
+        clock.mark("decode_end")
         pf_logits = None
         if pf is not None:
             pf_logits, cache = self.model.prefill_chunk(self.params, cache,
                                                         *pf)
+            clock.mark("prefill_end")
         return cache, tok, toks, pf_logits
 
     def _bucket_round(self, cache, rows: np.ndarray, last_tok, frozen, pf,
@@ -1319,37 +1334,42 @@ class SlotServeEngine:
         K = self.capacity
         live = np.flatnonzero(rows < K)
         dev = self.device
-        r = torch.from_numpy(np.minimum(rows, K - 1).astype(np.int64)).to(dev)
-        pad = torch.from_numpy(rows >= K).to(dev)
-        cache_b = dict(cache)
-        cache_b["len"] = torch.where(pad, 0, cache["len"][r])
-        cache_b["pages"] = torch.where(
-            pad[:, None], self.pool.pages.num_pages, cache["pages"][r])
-        if pf is not None:
-            pf_tok, pf_qpos, pf_wpos = pf
-            pf = (pf_tok[r], pf_qpos[r],
-                  torch.where(pad[:, None], _DROP_POS, pf_wpos[r]))
+        with span("serve.bucket"):
+            r = torch.from_numpy(
+                np.minimum(rows, K - 1).astype(np.int64)).to(dev)
+            pad = torch.from_numpy(rows >= K).to(dev)
+            cache_b = dict(cache)
+            cache_b["len"] = torch.where(pad, 0, cache["len"][r])
+            cache_b["pages"] = torch.where(
+                pad[:, None], self.pool.pages.num_pages, cache["pages"][r])
+            if pf is not None:
+                pf_tok, pf_qpos, pf_wpos = pf
+                pf = (pf_tok[r], pf_qpos[r],
+                      torch.where(pad[:, None], _DROP_POS, pf_wpos[r]))
+            last_b = torch.where(pad, 0, last_tok[r])
+            frozen_b = frozen[r] | pad
         cache_o, tok_b, toks_b, pf_logits_b = self._round(
-            cache_b, torch.where(pad, 0, last_tok[r]), frozen[r] | pad, pf,
-            steps)
-        self._dispatch_cache.record_shape(
-            ("round", len(rows), steps, 0 if pf is None else pf[0].shape[1])
-            if self.prefill_chunk else ("decode", len(rows), steps))
-        src = torch.from_numpy(live).to(dev)
-        dst = torch.from_numpy(rows[live].astype(np.int64)).to(dev)
-        out = dict(cache_o)
-        out["len"] = cache["len"].clone()
-        out["len"][dst] = cache_o["len"][src]
-        out["pages"] = cache["pages"]
-        tok = last_tok.clone()
-        tok[dst] = tok_b[src]
-        toks = last_tok[None, :].expand(steps, K).clone()
-        toks[:, dst] = toks_b[:, src]
-        pf_logits = None
-        if pf is not None:
-            pf_logits = torch.zeros((K,) + tuple(pf_logits_b.shape[1:]),
-                                    dtype=pf_logits_b.dtype, device=dev)
-            pf_logits[dst] = pf_logits_b[src]
+            cache_b, last_b, frozen_b, pf, steps)
+        with span("serve.bucket"):
+            self._dispatch_cache.record_shape(
+                ("round", len(rows), steps,
+                 0 if pf is None else pf[0].shape[1])
+                if self.prefill_chunk else ("decode", len(rows), steps))
+            src = torch.from_numpy(live).to(dev)
+            dst = torch.from_numpy(rows[live].astype(np.int64)).to(dev)
+            out = dict(cache_o)
+            out["len"] = cache["len"].clone()
+            out["len"][dst] = cache_o["len"][src]
+            out["pages"] = cache["pages"]
+            tok = last_tok.clone()
+            tok[dst] = tok_b[src]
+            toks = last_tok[None, :].expand(steps, K).clone()
+            toks[:, dst] = toks_b[:, src]
+            pf_logits = None
+            if pf is not None:
+                pf_logits = torch.zeros((K,) + tuple(pf_logits_b.shape[1:]),
+                                        dtype=pf_logits_b.dtype, device=dev)
+                pf_logits[dst] = pf_logits_b[src]
         return out, tok, toks, pf_logits
 
     def _dispatch(self, view, frozen: np.ndarray, chunk_rows: List[int],
@@ -1361,6 +1381,8 @@ class SlotServeEngine:
         a failed dispatch can be replayed as it stood."""
         C = self.prefill_chunk
         dev = self.device
+        self._clock.start_marks()
+        self._clock.mark("dispatch")
         pf = None
         valid: Dict[int, int] = {}
         if chunk_rows:
@@ -1384,9 +1406,12 @@ class SlotServeEngine:
             # vacant slots stay out
             kb = self._dispatch_cache.bucket(len(self.active))
             rows = self._dispatch_cache.pad_rows(sorted(self.active), kb)
-            return (*self._bucket_round(view, rows, last_tok, frozen_t, pf,
-                                        steps), valid)
-        return (*self._round(view, last_tok, frozen_t, pf, steps), valid)
+            out = self._bucket_round(view, rows, last_tok, frozen_t, pf,
+                                     steps)
+        else:
+            out = self._round(view, last_tok, frozen_t, pf, steps)
+        self._clock.mark("dispatch_end")
+        return (*out, valid)
 
     # ------------------------------------------------------------ decode loop
     def step(self) -> int:
@@ -1398,12 +1423,25 @@ class SlotServeEngine:
         the attempt cap bounds even a round that always fails (every
         failure advances some rid's streak). Errors of the kernel layer
         and of the CUDA runtime are not retried. Returns the number of
-        still-active requests."""
+        still-active requests.
+
+        The round's host phases tile it on the phase clock (``stats()``'s
+        ``span_*_s``; ranges ``serve.*`` while a profiler records): prep
+        up to the dispatch, the dispatch's input building and launches,
+        the fetch of its tokens, and the bookkeeping after."""
+        self._clock.begin("prep")
+        try:
+            return self._step()
+        finally:
+            self._clock.end()
+
+    def _step(self) -> int:
         self._apply_cancels()
         self._expire_queued()
         if self.paged:
             self.pool.retune()
-        self._admit()
+        with span("serve.admit"):
+            self._admit()
         if not self.active:
             self._flush_deferred_frees()
             return 0
@@ -1413,6 +1451,7 @@ class SlotServeEngine:
             try:
                 n = self._run_round()
             except (InjectedFault, RoundDispatchError) as exc:
+                self._clock.switch("prep")
                 attempts += 1
                 self.rounds_retried += 1
                 self._recover_round(exc)
@@ -1443,7 +1482,9 @@ class SlotServeEngine:
                 remaining={s: int(self._pf_end[s] - self._pf_pos[s])
                            for s in backlog}).chunk_rows
         if self.paged:
-            paused, advancing = self._grow_for_chunk(steps, tuple(planned))
+            with span("serve.pages"):
+                paused, advancing = self._grow_for_chunk(steps,
+                                                         tuple(planned))
         else:
             paused, advancing = set(), set(planned)
         if not self.active:                    # everything preempted away
@@ -1461,6 +1502,7 @@ class SlotServeEngine:
         if paused:
             # paused rows must not touch the arena this round
             view["pages"] = self.pool.masked_table(paused)
+        self._clock.switch("dispatch")
         # the generator is the only host state the dispatch consumes:
         # restoring it on failure makes the retry replay the same draws
         gen0 = self._gen.get_state()
@@ -1481,9 +1523,16 @@ class SlotServeEngine:
         self.decode_dispatches += 1
         self.decode_steps_run += steps
         self.pool.adopt(cache)
+        self._clock.switch("fetch")
         self._last_tok = tok.cpu().numpy().astype(np.int32)
         toks = toks.cpu().numpy()                          # [steps, K]
+        self._clock.read_marks()
+        self._clock.switch("post")
 
+        if chunk_rows:
+            self.prefill_lanes_computed += C * (
+                self._dispatch_cache.bucket(len(self.active))
+                if self.bucketed_dispatch else self.capacity)
         completions: List[Tuple[int, int]] = []
         for s in chunk_rows:
             v = valid[s]
@@ -1556,7 +1605,8 @@ class SlotServeEngine:
                 retire.append((slot, done_at))
             elif reg_gen:
                 self._register_generated(slot, req)
-        self._retire_batch(retire)
+        with span("serve.retire"):
+            self._retire_batch(retire)
         self.step_clock += steps
         return len(self.active)
 
@@ -1661,7 +1711,14 @@ class SlotServeEngine:
             "bucketed_dispatch": float(self.bucketed_dispatch),
             "dispatch_shapes": float(len(self._dispatch_cache.shapes)
                                      if self._dispatch_cache else 0),
+            "prefill_lanes_computed": float(self.prefill_lanes_computed),
         }
+        # the phase clock: host seconds of each phase of ``step`` and
+        # device-clock seconds of the dispatch's spans
+        out.update({f"span_{k}_s": v
+                    for k, v in self._clock.host_s.items()})
+        out.update({f"span_{k}_device_s": v
+                    for k, v in self._clock.device_s.items()})
         if not self.paged:
             return out
         pp = self.pool.pages

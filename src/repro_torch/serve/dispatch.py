@@ -6,9 +6,12 @@ that holds them (capped at capacity), runs the round at that row count,
 and scatters per-row results back to the ``[K]`` state — so vacant
 slots cost nothing and the set of dispatch shapes stays bounded by
 ``log2(capacity) + 1`` buckets (times the ``chunk ∈ {0, C}`` variants).
-The reference jit-compiles one trace per shape; PyTorch runs eagerly,
-so here the ledger only records which shapes were dispatched (the
-bounded set a later CUDA-graph cache would capture, one graph each).
+A round's prefill chunk takes a second gather of its chunk rows alone,
+padded to their own bucket of the same policy; the ledger keeps the
+reference's keys, which name the decode bucket only. The reference
+jit-compiles one trace per shape; PyTorch runs eagerly, so here the
+ledger only records which shapes were dispatched (the bounded set a
+later CUDA-graph cache would capture, one graph each).
 The bucket policy is the library's windowed planner's.
 """
 

@@ -28,9 +28,11 @@ runs scheduler rounds:
   * **dispatch** — ``decode_chunk`` decode steps over the rows
     (paged: gathered into a power-of-2 bucket when bucketed dispatch is
     on), *then*, chunked, a ``C``-token prefill chunk for the
-    FIFO-oldest prefilling rows. The order matters: a prefilling row's
-    frozen decode steps write scratch K/V where the chunk writes, so the
-    chunk must land after them;
+    FIFO-oldest prefilling rows (bucketed: over a second gather of those
+    rows alone, padded to their own power-of-2 bucket, so the rows that
+    only decode cost the chunk nothing). The order matters: a prefilling
+    row's frozen decode steps write scratch K/V where the chunk writes,
+    so the chunk must land after them;
   * **retirement** — every finished row leaves its slot (paged: every
     row's pages return in one ``free_batch``; with the prefix cache on,
     its full written pages are donated to the cache first).
@@ -89,7 +91,8 @@ out *before* each scatter instead: the ``_DROP_POS`` write sentinel and
 sentinel pages (``models.attention.page_write_plan``), retired slot rows
 past ``max_len`` (``models.attention.scatter_rows``) and the bucket
 round's scatter-back to row ``K`` (only live bucket lanes are written
-back, see ``_bucket_round``).
+back, see ``_bucket_round``; the chunk's own gather is never scattered
+back: the engine reads its logits at each chunk row's place in it).
 """
 
 from __future__ import annotations
@@ -504,8 +507,9 @@ class SlotServeEngine:
         self.prefill_tokens = 0
         self.pad_tokens = 0
         self.prefill_chunks = 0
-        #: rows dispatched x chunk tokens over the rounds that ran a
-        #: prefill chunk (every bucket row's lanes are computed)
+        #: rows of the chunk call x chunk tokens over the rounds that ran
+        #: a prefill chunk (bucketed: the chunk rows' own bucket, else
+        #: every slot; each row's lanes are all computed)
         self.prefill_lanes_computed = 0
         #: the round's phases on the host clock (they tile ``step``) and
         #: the dispatch's device spans, read after the token copy
@@ -1308,32 +1312,41 @@ class SlotServeEngine:
             toks.append(nxt)
         return cache, tok, torch.stack(toks)               # [steps, B]
 
-    def _round(self, cache, last_tok, frozen, pf, steps):
+    def _round(self, cache, last_tok, frozen, pf, steps, pf_rows=None):
         """The decode scan FIRST, then the prefill chunk when ``pf`` =
         ``(tokens, positions, write positions)`` is given — the chunk's
         writes must overwrite the scratch K/V that the frozen prefilling
-        rows' decode steps wrote at their cursor."""
+        rows' decode steps wrote at their cursor. The chunk runs over the
+        scan's rows, or, when ``pf_rows`` gives its own row leaves
+        (``len``, ``pages``: the bucket round's chunk gather), over
+        those rows of the same arena."""
         clock = self._clock
         clock.mark("decode")
         cache, tok, toks = self._decode_scan(cache, last_tok, frozen, steps)
         clock.mark("decode_end")
         pf_logits = None
         if pf is not None:
-            pf_logits, cache = self.model.prefill_chunk(self.params, cache,
-                                                        *pf)
+            pf_cache = cache if pf_rows is None else {**cache, **pf_rows}
+            pf_logits, _ = self.model.prefill_chunk(self.params, pf_cache,
+                                                    *pf)
             clock.mark("prefill_end")
         return cache, tok, toks, pf_logits
 
     def _bucket_round(self, cache, rows: np.ndarray, last_tok, frozen, pf,
-                      steps):
-        """The round over a ``[kb]``-row gather of the active slots. Pad
-        lanes (row id == K) are inert: length 0, sentinel table row,
-        frozen, ``_DROP_POS`` writes — and only the live lanes are
-        scattered back (the reference drops the pad lanes' scatter-back
-        at the out-of-range row ``K``)."""
+                      steps, pf_slots: Optional[np.ndarray] = None):
+        """The round over a ``[kb]``-row gather of the active slots, its
+        prefill chunk over a second gather of the chunk rows alone
+        (``pf_slots``, ``[kc]``, padded to their own bucket; ``pf`` is
+        built at that shape). Pad lanes (row id == K) are inert: length
+        0, sentinel table row, frozen, ``_DROP_POS`` writes — and only
+        the live decode lanes are scattered back (the reference drops
+        the pad lanes' scatter-back at the out-of-range row ``K``). The
+        chunk's logits stay at the chunk gather's shape."""
         K = self.capacity
         live = np.flatnonzero(rows < K)
         dev = self.device
+        sentinel = self.pool.pages.num_pages
+        pf_rows = None
         with span("serve.bucket"):
             r = torch.from_numpy(
                 np.minimum(rows, K - 1).astype(np.int64)).to(dev)
@@ -1341,15 +1354,18 @@ class SlotServeEngine:
             cache_b = dict(cache)
             cache_b["len"] = torch.where(pad, 0, cache["len"][r])
             cache_b["pages"] = torch.where(
-                pad[:, None], self.pool.pages.num_pages, cache["pages"][r])
+                pad[:, None], sentinel, cache["pages"][r])
             if pf is not None:
-                pf_tok, pf_qpos, pf_wpos = pf
-                pf = (pf_tok[r], pf_qpos[r],
-                      torch.where(pad[:, None], _DROP_POS, pf_wpos[r]))
+                rc = torch.from_numpy(
+                    np.minimum(pf_slots, K - 1).astype(np.int64)).to(dev)
+                pad_c = torch.from_numpy(pf_slots >= K).to(dev)
+                pf_rows = {"len": torch.where(pad_c, 0, cache["len"][rc]),
+                           "pages": torch.where(pad_c[:, None], sentinel,
+                                                cache["pages"][rc])}
             last_b = torch.where(pad, 0, last_tok[r])
             frozen_b = frozen[r] | pad
-        cache_o, tok_b, toks_b, pf_logits_b = self._round(
-            cache_b, last_b, frozen_b, pf, steps)
+        cache_o, tok_b, toks_b, pf_logits = self._round(
+            cache_b, last_b, frozen_b, pf, steps, pf_rows)
         with span("serve.bucket"):
             self._dispatch_cache.record_shape(
                 ("round", len(rows), steps,
@@ -1365,49 +1381,55 @@ class SlotServeEngine:
             tok[dst] = tok_b[src]
             toks = last_tok[None, :].expand(steps, K).clone()
             toks[:, dst] = toks_b[:, src]
-            pf_logits = None
-            if pf is not None:
-                pf_logits = torch.zeros((K,) + tuple(pf_logits_b.shape[1:]),
-                                        dtype=pf_logits_b.dtype, device=dev)
-                pf_logits[dst] = pf_logits_b[src]
         return out, tok, toks, pf_logits
 
     def _dispatch(self, view, frozen: np.ndarray, chunk_rows: List[int],
                   steps: int):
         """The round's device work: ``steps`` decode steps over the rows
-        (bucketed when on), then the prefill chunk of ``chunk_rows``.
-        Returns ``(cache, tok, toks, pf_logits, valid)``, where ``valid``
-        is each chunk row's real lane count. It changes no host state, so
-        a failed dispatch can be replayed as it stood."""
+        (bucketed when on), then the prefill chunk of ``chunk_rows`` —
+        bucketed, over a gather of those rows alone, padded to their own
+        bucket; off, over every slot. Returns ``(cache, tok, toks,
+        pf_logits, valid)``, where ``valid`` maps each chunk row to its
+        row in ``pf_logits`` and its real lane count. It changes no host
+        state, so a failed dispatch can be replayed as it stood."""
         C = self.prefill_chunk
         dev = self.device
         self._clock.start_marks()
         self._clock.mark("dispatch")
         pf = None
-        valid: Dict[int, int] = {}
+        pf_slots = None
+        valid: Dict[int, Tuple[int, int]] = {}
         if chunk_rows:
-            pf_tok = np.zeros((self.capacity, C), np.int32)
-            pf_qpos = np.zeros((self.capacity, C), np.int32)
-            pf_wpos = np.full((self.capacity, C), _DROP_POS, np.int32)
+            if self.bucketed_dispatch:
+                pf_slots = self._dispatch_cache.pad_rows(
+                    chunk_rows, self._dispatch_cache.bucket(len(chunk_rows)))
+                at = {s: i for i, s in enumerate(chunk_rows)}
+            else:
+                at = {s: s for s in chunk_rows}
+            n = self.capacity if pf_slots is None else len(pf_slots)
+            pf_tok = np.zeros((n, C), np.int32)
+            pf_qpos = np.zeros((n, C), np.int32)
+            pf_wpos = np.full((n, C), _DROP_POS, np.int32)
             for s in chunk_rows:
+                i = at[s]
                 p0 = int(self._pf_pos[s])
                 v = int(min(C, self._pf_end[s] - p0))
-                pf_tok[s, :v] = self.active[s].prompt[p0:p0 + v]
-                pf_qpos[s, :] = p0 + np.arange(C)
-                pf_wpos[s, :v] = p0 + np.arange(v)
-                valid[s] = v
+                pf_tok[i, :v] = self.active[s].prompt[p0:p0 + v]
+                pf_qpos[i, :] = p0 + np.arange(C)
+                pf_wpos[i, :v] = p0 + np.arange(v)
+                valid[s] = (i, v)
             pf = tuple(torch.from_numpy(x).to(dev)
                        for x in (pf_tok, pf_qpos, pf_wpos))
         last_tok = torch.from_numpy(self._last_tok).to(dev)
         frozen_t = torch.from_numpy(frozen).to(dev)
         if self.bucketed_dispatch:
-            # every active slot rides the bucket (prefilling and paused
-            # rows too: the decode-then-chunk ordering needs their lanes);
-            # vacant slots stay out
+            # every active slot rides the decode bucket (prefilling and
+            # paused rows too: the decode-then-chunk ordering needs their
+            # lanes); vacant slots stay out
             kb = self._dispatch_cache.bucket(len(self.active))
             rows = self._dispatch_cache.pad_rows(sorted(self.active), kb)
             out = self._bucket_round(view, rows, last_tok, frozen_t, pf,
-                                     steps)
+                                     steps, pf_slots)
         else:
             out = self._round(view, last_tok, frozen_t, pf, steps)
         self._clock.mark("dispatch_end")
@@ -1531,18 +1553,18 @@ class SlotServeEngine:
 
         if chunk_rows:
             self.prefill_lanes_computed += C * (
-                self._dispatch_cache.bucket(len(self.active))
+                self._dispatch_cache.bucket(len(chunk_rows))
                 if self.bucketed_dispatch else self.capacity)
-        completions: List[Tuple[int, int]] = []
+        completions: List[Tuple[int, int, int]] = []
         for s in chunk_rows:
-            v = valid[s]
+            i, v = valid[s]
             self._pf_pos[s] += v
             self.prefill_chunks += 1
             self.prefill_tokens += v
             self.pad_tokens += C - v
             self.active[s].prefill_chunks += 1
             if self._pf_pos[s] >= self._pf_end[s]:
-                completions.append((s, v))
+                completions.append((s, i, v))
         if paused or pf_rows:
             # roll lengths back: paused rows to before the dispatch,
             # prefilling rows to their cursor (their decode-scan scratch
@@ -1557,11 +1579,11 @@ class SlotServeEngine:
 
         retire: List[Tuple[int, int]] = []
         pf_skip = set(pf_rows)
-        for s, v in completions:
+        for s, i, v in completions:
             # prompt fully cached: the first output token comes from the
             # chunk's last real lane (prefilling -> decoding)
             req = self.active[s]
-            tok0 = int(self._sample(pf_logits[s, v - 1][None])[0])
+            tok0 = int(self._sample(pf_logits[i, v - 1][None])[0])
             self._last_tok[s] = tok0
             req.out_tokens.append(tok0)
             if self.eos_id is not None and tok0 == self.eos_id:

@@ -114,6 +114,76 @@ def test_bucket_pad_lanes_leave_vacant_slots_untouched(models):
     assert eng.pool.pages.in_use == 0
 
 
+@pytest.fixture(scope="module")
+def moe_model():
+    tm = build_model(get_arch("olmoe-1b-7b").reduced())
+    return tm, tm.init(torch.Generator().manual_seed(0), "cpu")
+
+
+def _serve_staggered(tm, tp, bucketed):
+    """Capacity 8: two long decoders, then prompts of 3-14 tokens
+    arriving over the next rounds, so rows prefill in different rounds
+    beside rows that only decode. Returns what was served and, per
+    round with a chunk, ``(chunk rows, decode bucket rows, rows of the
+    model's chunk call)``."""
+    rng = np.random.default_rng(11)
+    eng = SlotServeEngine(tm, tp, capacity=8, max_len=48, kv_layout="paged",
+                          page_size=4, prefill_chunk_tokens=4,
+                          decode_chunk=2, attention_impl="fused",
+                          prefix_sharing="off", bucketed_dispatch=bucketed,
+                          device="cpu")
+    rounds, calls = [], []
+    dispatch, chunk = eng._dispatch, tm.prefill_chunk
+
+    def counted_dispatch(view, frozen, chunk_rows, steps):
+        if chunk_rows:
+            rounds.append((len(chunk_rows),
+                           eng._dispatch_cache.bucket(len(eng.active))
+                           if eng.bucketed_dispatch else eng.capacity))
+        return dispatch(view, frozen, chunk_rows, steps)
+
+    def counted_chunk(params, cache, tokens, *rest):
+        calls.append(int(tokens.shape[0]))
+        return chunk(params, cache, tokens, *rest)
+
+    eng._dispatch = counted_dispatch
+    tm.prefill_chunk = counted_chunk
+    try:
+        hs = [eng.submit(rng.integers(0, 512, 5).astype(np.int32), 20)
+              for _ in range(2)]
+        for r in range(8):
+            eng.step()
+            for _ in range(r % 3):
+                hs.append(eng.submit(rng.integers(
+                    0, 512, int(rng.integers(3, 15))).astype(np.int32),
+                    int(rng.integers(2, 7))))
+        eng.run_until_done()
+    finally:
+        del tm.prefill_chunk
+    eng.pool.check()
+    assert eng.pool.pages.in_use == 0
+    served = ({h.rid: list(h.out_tokens) for h in hs}, list(eng.grant_log),
+              eng.pool.pages.lock_stats()["acquires"])
+    return served, [(n, kb, c) for (n, kb), c in zip(rounds, calls)], eng
+
+
+@pytest.mark.parametrize("arch", ["dense", "moe"])
+def test_prefill_chunk_runs_over_its_own_rows(request, models, arch):
+    """Bucketed, each round's prefill chunk runs over a gather of the
+    rows that have a chunk, padded to their own bucket, not over the
+    decode bucket; what is served equals the unbucketed engine's."""
+    tm, tp = (models[2:] if arch == "dense"
+              else request.getfixturevalue("moe_model"))
+    off, off_rounds, _ = _serve_staggered(tm, tp, "off")
+    on, on_rounds, eng = _serve_staggered(tm, tp, "on")
+    assert on == off
+    assert len({n for n, _, _ in on_rounds}) > 1
+    assert all(c == eng._dispatch_cache.bucket(n) for n, _, c in on_rounds)
+    assert any(c < kb for _, kb, c in on_rounds)
+    assert all(c == 8 for _, _, c in off_rounds)
+    assert len(on_rounds) == len(off_rounds)
+
+
 @pytest.mark.parametrize("kw,what", [
     (dict(temperature=0.7), "sampling"),
     (dict(kv_layout="slots", temperature=0.7), "sampling"),

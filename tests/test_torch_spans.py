@@ -132,18 +132,25 @@ def test_phase_clock_switches_and_marks():
 
 @pytest.mark.parametrize("bucketed", ["on", "off"])
 def test_prefill_lanes_computed(dense, bucketed, monkeypatch):
-    """Three prompts of 10 tokens are three chunk rounds over a bucket of
-    4 rows (bucketing on) or all 8 rows (off); a mixed run counts every
-    lane the model's chunk calls computed."""
+    """Two prompts of 4 tokens are one chunk round over a chunk bucket of
+    2 rows; three prompts of 10 tokens then chunk for three rounds
+    beside them, over a chunk bucket of 4 rows while the decode bucket
+    holds 8 (bucketing on), or over all 8 rows each round (off). A mixed
+    run counts every lane the model's chunk calls computed."""
     m, _ = dense
     eng = _engine(dense, bucketed, capacity=8)
+    for i in range(2):
+        eng.submit(np.arange(100 + i, 104 + i, dtype=np.int32), 12)
+    eng.step()
     for i in range(3):
         eng.submit(np.arange(1 + i, 11 + i, dtype=np.int32), 3)
     eng.run_until_done()
     st = eng.stats()
-    rows = 4 if bucketed == "on" else 8
-    assert st["prefill_lanes_computed"] == 3 * rows * CHUNK
-    assert st["prefill_tokens"] == 30
+    rows = [2, 4, 4, 4] if bucketed == "on" else [8] * 4
+    assert st["prefill_lanes_computed"] == sum(rows) * CHUNK
+    assert st["prefill_tokens"] == 38
+    if bucketed == "on":
+        assert ("round", 8, 2, CHUNK) in eng._dispatch_cache.shapes
 
     shapes = []
     orig = m.prefill_chunk
